@@ -16,3 +16,9 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where "
+        "torch.cuda.is_available() is False")
