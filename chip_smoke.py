@@ -2,12 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from jsplayer_tpu_torch/csrc/, holds each
-against its plain torch twin on the card at 1080p, then drives the port's
-main path — batched 1080p ScreenPressor kmv ingest with still-elision and
-the ds2 model epilogue — through jsplayer_tpu_torch.VideoIngestPipeline,
-checks its frames against the source frames (the codec is lossless) and
-its model tensors against the plain CPU epilogue, bit for bit.
+Builds the port's CUDA kernels from jsplayer_tpu_torch/csrc/ and holds
+each against its plain torch twin on the card at 1080p, B=4: kmv_compose
+and ds2_pack on random inputs; the three modes of sp_motion.cu
+(sp_compose_general, sp_motion_patch, sp_motion_mxu) on commands the
+native decoder captured from the streams below, the general mode also on
+random out-of-frame vectors.  Then it drives the port's paths on 4 SP v4
+1080p streams of 128 frames through jsplayer_tpu_torch.VideoIngestPipeline:
+
+  (a) kmv, still-elided, frames + ds2 model tensors (the main path);
+  (b) the same, model tensors only;
+  (c) sp_device_path="pallas" (sp_motion_patch), frames + model tensors;
+  (d) sp_device_path="general" (sp_compose_general), the same;
+
+and the MXU compose (sp_motion_mxu), which no ingest path runs, as a scan
+over one whole decoded stream.  Every frame must equal its source frame
+(the codec is lossless) and every model tensor the plain CPU epilogue, bit
+for bit.  Each path runs with every launch count set to 0 just before it
+and read just after; each kernel must have launched on its path.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
 anything.  The last line of standard output is
@@ -30,6 +42,7 @@ import torch
 
 B, T, Y, X = 4, 128, 1080, 1920  # the slice: 4 streams x 128 frames, 1080p
 WINDOW = 64
+DEV = torch.device("cuda", 0)  # the one card the script needs
 KEYFRAMES = (0, 40)  # shared keyframes: windows [0,40) [40,104) CONCAT,
 #                      [104,128) starts mid-GOP -> PADDED
 
@@ -112,7 +125,6 @@ def phase_kernels(card: str) -> dict:
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack, ds2_pack_ref
     from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose, kmv_compose_ref
 
-    dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     res = {}
 
@@ -120,17 +132,17 @@ def phase_kernels(card: str) -> dict:
     Bk, K = 4, 2
     prev = torch.from_numpy(
         rng.integers(0, 1 << 32, (Bk, Y, X), dtype=np.uint64)
-        .astype(np.uint32).view(np.int32)).to(dev)
+        .astype(np.uint32).view(np.int32)).to(DEV)
     word = (rng.integers(0, 1 << 24, (Bk, Y, X), dtype=np.uint32)
             | (rng.integers(0, 4, (Bk, Y, X), dtype=np.uint32) << 24)
             | (rng.integers(0, 8, (Bk, Y, X), dtype=np.uint32) << 26))
-    pc = torch.from_numpy(word.view(np.int32)).to(dev)
+    pc = torch.from_numpy(word.view(np.int32)).to(DEV)
     mvk = torch.tensor([[[3, -5], [-7, 2]],            # small, negative
                         [[-2000, 1500], [1925, -1085]],  # out of frame
                         [[16, 16], [-16, 0]],           # chg = 0 stream
                         [[0, Y], [-X, -2 * Y - 1]]],    # |mv| >= Y, X
-                       dtype=torch.int32, device=dev)
-    chg = torch.tensor([True, True, False, True], device=dev)
+                       dtype=torch.int32, device=DEV)
+    chg = torch.tensor([True, True, False, True], device=DEV)
     got = kmv_compose(prev, pc, mvk, chg)
     want = kmv_compose_ref(prev, pc, mvk, chg)
     torch.cuda.synchronize()
@@ -149,7 +161,7 @@ def phase_kernels(card: str) -> dict:
     for shape in ((64, Y, X), (3, Y + 1, X + 3)):
         fr = torch.from_numpy(
             rng.integers(0, 1 << 32, shape, dtype=np.uint64)
-            .astype(np.uint32).view(np.int32)).to(dev)
+            .astype(np.uint32).view(np.int32)).to(DEV)
         for flip in (False, True):
             got = ds2_pack(fr, flip=flip)
             want = ds2_pack_ref(fr, flip=flip)
@@ -171,7 +183,8 @@ def phase_kernels(card: str) -> dict:
 def make_streams():
     """B SP v4 1080p streams of T frames, the bench screen mix (scroll +
     paint events, a third stills) with keyframes at KEYFRAMES → (AVI bytes
-    per stream, source frames [B] of [T, Y, X] u32)."""
+    per stream, source frames [B] of [T, Y, X] u32, frame bytes [B] of
+    [T])."""
     from jsplayer_tpu import native
     from jsplayer_tpu.encode.avi_mux import mux_avi
     from jsplayer_tpu.utils.corpora import screen_mix
@@ -186,14 +199,15 @@ def make_streams():
                   else enc.encode_p(f.reshape(-1))
                   for t, f in enumerate(frames)]
         keys = [t in KEYFRAMES for t in range(T)]
-        return mux_avi(chunks, X, Y, 24, codec="SPV4", keyflags=keys), frames
+        return (mux_avi(chunks, X, Y, 24, codec="SPV4", keyflags=keys),
+                frames, chunks)
 
     with ThreadPoolExecutor(B) as ex:
         got = list(ex.map(one, range(B)))
-    return [g[0] for g in got], [g[1] for g in got]
+    return tuple([g[i] for g in got] for i in range(3))
 
 
-def run_ingest(avis, **kw):
+def run_ingest(avis, still_elision=True, **kw):
     """Drive the port's pipeline once → (window dicts, stats, seconds)."""
     from jsplayer_tpu_torch import IngestConfig, MemorySource, VideoIngestPipeline
 
@@ -201,8 +215,8 @@ def run_ingest(avis, **kw):
     t0 = time.perf_counter()
     pipe = VideoIngestPipeline(
         [MemorySource(a) for a in avis],
-        IngestConfig(window=WINDOW, still_elision=True, model_downscale=2,
-                     device="cuda", **kw))
+        IngestConfig(window=WINDOW, still_elision=still_elision,
+                     model_downscale=2, device=str(DEV), **kw))
     batches = list(pipe)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -238,57 +252,227 @@ def gather(batches, rows, key):
     return torch.cat(out)
 
 
-def phase_slice(card: str) -> dict:
-    from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack, to_model_input
-    from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose
+def kernel_counters() -> dict:
+    """name → the wrapper whose `.launches` counts that kernel's launches."""
+    from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
+    from jsplayer_tpu_torch.kernels.sp_motion_mxu import sp_motion_mxu
+    from jsplayer_tpu_torch.kernels.sp_motion_pallas import sp_motion_patch
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose,
+                                                     sp_compose_general)
+
+    return {"kmv_compose": kmv_compose, "ds2_pack": ds2_pack,
+            "sp_compose_general": sp_compose_general,
+            "sp_motion_patch": sp_motion_patch,
+            "sp_motion_mxu": sp_motion_mxu}
+
+
+def count_launches(fn):
+    """Run fn() with every kernel's launch count set to 0 just before it →
+    (fn's result, {kernel: launches during fn})."""
+    counters = kernel_counters()
+    for w in counters.values():
+        w.launches = 0
+    res = fn()
+    return res, {name: w.launches for name, w in counters.items()}
+
+
+def capture(chunks):
+    """The native decoder's capture of the streams → torch tensors on the
+    card: bts [B,T,NB], mv [B,T,NB,2], rect [B,T,NB,4], payload
+    [B,T,Y,X] int32 bits, changed [B,T] bool."""
+    from jsplayer_tpu import native
 
     t0 = time.perf_counter()
-    avis, src = make_streams()
-    log(f"made {B} streams x {T} frames {X}x{Y} "
-        f"({sum(len(a) for a in avis)} AVI bytes) in "
+    got = native.native_sp_decode_streams(chunks, X, Y)
+    log(f"native capture of {len(chunks)} x {len(chunks[0])} frames: "
         f"{time.perf_counter() - t0:.3f} s")
+    out = {k: torch.from_numpy(np.ascontiguousarray(got[k]).view(np.int32))
+           .to(DEV) for k in ("bts", "mv", "rect", "payload")}
+    out["changed"] = torch.from_numpy(got["changed"].astype(bool)).to(DEV)
+    return out
 
-    kmv_compose.launches = 0
-    ds2_pack.launches = 0
-    runs = {}
-    runs["a"] = run_ingest(avis)
-    runs["b"] = run_ingest(avis, emit_frames=False)
-    launches = {"kmv_compose": kmv_compose.launches,
-                "ds2_pack": ds2_pack.launches}
-    log(f"main-path kernel launches: {launches}")
+
+def phase_block_kernels(card: str, cap: dict, src) -> dict:
+    """The three modes of sp_motion.cu at 1080p, B=4, against their plain
+    twins, bit for bit, on one decoder-captured scan step of every stream
+    (and the general mode on random out-of-frame vectors); each result must
+    also equal the source frames."""
+    from jsplayer_tpu_torch.kernels import sp_motion_mxu as PM
+    from jsplayer_tpu_torch.kernels import sp_motion_pallas as PP
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    # the step with the most full-block motion over all streams, every
+    # stream changed
+    n3 = (cap["bts"] == 3).sum(dim=(0, 2))
+    ok = cap["changed"].all(dim=0)
+    ok[0] = False
+    t = int(torch.where(ok, n3, -1).argmax())
+    require(bool(ok[t]) and int(n3[t]) > 0,
+            "a scan step with motion blocks in every stream")
+    prev = torch.stack([s[t - 1] for s in src]).to(DEV)
+    want_frames = torch.stack([s[t] for s in src]).to(DEV)
+    cmds = [cap[k][:, t].contiguous() for k in ("bts", "mv", "rect",
+                                               "payload")]
+    chg = torch.ones(B, dtype=torch.bool, device=DEV)
+    mxu = [torch.stack(c) for c in zip(*(
+        PM.mxu_commands(*(c[b] for c in cmds)) for b in range(B)))]
+    rng = np.random.default_rng(1)
+    rnd = [torch.from_numpy(a).to(DEV) for a in (
+        rng.integers(-1, 8, cmds[0].shape).astype(np.int32),
+        rng.integers(-3000, 3000, cmds[1].shape).astype(np.int32),
+        cmds[2].cpu().numpy(),
+        rng.integers(0, 1 << 32, cmds[3].shape, dtype=np.uint64)
+        .astype(np.uint32).view(np.int32))]
+    log(f"block kernels at step {t}: {int(n3[t])} bts-3 blocks over {B} "
+        f"streams")
+    res = {}
+    for name, step, ref, args, exact in (
+            ("sp_compose_general", P.sp_compose_general, P.compose_frame_ref,
+             cmds, True),
+            ("sp_compose_general", P.sp_compose_general, P.compose_frame_ref,
+             rnd, False),
+            ("sp_motion_patch", PP.sp_motion_patch, PP.compose_frame_fast_ref,
+             cmds, True),
+            ("sp_motion_mxu", PM.sp_motion_mxu, PM.compose_frame_mxu_ref,
+             mxu, True)):
+        got = step(prev, *args, chg)
+        want = P.per_stream_ref(ref, prev, chg, *args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(torch.equal(got, want), f"{name} bit-exact vs plain")
+        if exact:
+            require(torch.equal(got, want_frames),
+                    f"{name} composes the source frames")
+        what = "captured" if exact else "random out-of-frame"
+        if name in res:  # the extra case adds its error, not its times
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            log(f"{name} [{B},{Y},{X}] {what}: bit-exact")
+            continue
+        out = torch.empty_like(prev)
+        ms = time_ms(lambda: step(prev, *args, chg, out=out))
+        plain_ms = time_ms(lambda: P.per_stream_ref(ref, prev, chg, *args))
+        log(f"{name} [{B},{Y},{X}] {what}: bit-exact; kernel {ms:.4f} "
+            f"ms/call, plain {plain_ms:.4f} ms/call ({card})")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return res
+
+
+def phase_mxu_scan(card: str, cap: dict, src) -> dict:
+    """The MXU compose's path (no ingest route runs it): a scan over
+    stream 0's whole capture, one sp_motion_mxu launch a changed frame,
+    every frame checked against the source frame."""
+    from jsplayer_tpu_torch.kernels.sp_motion_mxu import (mxu_commands,
+                                                          sp_motion_mxu)
+
+    chg = torch.ones(1, dtype=torch.bool, device=DEV)
+
+    def scan():
+        prev = torch.zeros((1, Y, X), dtype=torch.int32, device=DEV)
+        frames = torch.empty((T, Y, X), dtype=torch.int32, device=DEV)
+        for t in range(T):
+            if bool(cap["changed"][0, t]):
+                args = mxu_commands(*(cap[k][0, t] for k in (
+                    "bts", "mv", "rect", "payload")))
+                sp_motion_mxu(prev, *(a[None] for a in args), chg,
+                              out=frames[t:t + 1])
+            else:
+                frames[t] = prev[0]
+            prev = frames[t:t + 1]
+        torch.cuda.synchronize()
+        return frames
+
+    t0 = time.perf_counter()
+    frames, launches = count_launches(scan)
+    dt = time.perf_counter() - t0
+    require(torch.equal(frames, src[0].to(DEV)),
+            "mxu scan: every frame == source frame")
+    log(f"mxu scan: stream 0, {T} frames bit-exact in {dt:.3f} s "
+        f"({launches['sp_motion_mxu']} launches; {card})")
+    return launches
+
+
+def model_reference(src):
+    """The plain CPU epilogue of every stream's source frames → int16 bits
+    of to_model_input(downscale=2) on the card, [B] of [T, Y/2, X/2, 3]."""
+    from jsplayer_tpu_torch.kernels.rgb_convert import to_model_input
+
+    return [torch.cat([to_model_input(s[i:i + 16], downscale=2)
+                       for i in range(0, T, 16)]).view(torch.int16).to(DEV)
+            for s in src]
+
+
+def check_model(got, want, what):
+    require(got.dtype == torch.bfloat16
+            and tuple(got.shape) == tuple(want.shape),
+            f"{what} model_input bf16 {list(want.shape)}")
+    require(torch.equal(got.view(torch.int16), want),
+            f"{what} model_input == plain CPU to_model_input(source, "
+            f"downscale=2)")
+
+
+def phase_kmv_runs(card: str, avis, src, models) -> dict:
+    """Runs (a) and (b): the main path, kmv with still-elision."""
+    runs, launches = count_launches(lambda: {
+        "a": run_ingest(avis), "b": run_ingest(avis, emit_frames=False)})
+    log(f"kmv path (a)+(b) kernel launches: {launches}")
     for name, (batches, stats, dt) in runs.items():
-        log(f"run ({name}): {stats}; {B * T} timeline frames in {dt:.3f} s "
-            f"= {B * T / dt:.1f} delivered frames/s ({card})")
+        log(f"run ({name}) kmv: {stats}; {B * T} timeline frames in "
+            f"{dt:.3f} s = {B * T / dt:.1f} delivered frames/s ({card})")
     concat = sum(r[1]["concat_windows"] for r in runs.values())
     padded = sum(r[1]["padded_windows"] for r in runs.values())
     require(concat > 0 and padded > 0,
             f"both elision layouts ran (concat {concat}, padded {padded})")
-    require(all(n > 0 for n in launches.values()),
-            f"every kernel of the path launched ({launches})")
+    require(launches["kmv_compose"] > 0 and launches["ds2_pack"] > 0,
+            f"every kernel of the kmv path launched ({launches})")
 
-    dev = torch.device("cuda", 0)
     ba, bb = runs["a"][0], runs["b"][0]
     require(all("frames_u32" not in x for x in bb),
             "run (b) emits no frame stack")
     for b in range(B):
         # (a): every timeline frame equals the source frame, bit for bit
         ra, rb = timeline_rows(ba, b), timeline_rows(bb, b)
-        s = torch.from_numpy(src[b].view(np.int32))
-        require(torch.equal(gather(ba, ra, "frames_u32"), s.to(dev)),
+        require(torch.equal(gather(ba, ra, "frames_u32"), src[b].to(DEV)),
                 f"run (a) stream {b} frames == source frames")
         # (a) and (b): model tensors == the plain CPU epilogue
-        want = torch.cat([to_model_input(s[i:i + 16], downscale=2)
-                          for i in range(0, T, 16)]).view(torch.int16)
-        want = want.to(dev)
         for name, batches, rows in (("a", ba, ra), ("b", bb, rb)):
-            got = gather(batches, rows, "model_input")
-            require(got.dtype == torch.bfloat16
-                    and tuple(got.shape) == (T, Y // 2, X // 2, 3),
-                    f"run ({name}) model_input bf16 [{T},{Y//2},{X//2},3]")
-            require(torch.equal(got.view(torch.int16), want),
-                    f"run ({name}) stream {b} model_input == plain CPU "
-                    f"to_model_input(source, downscale=2)")
-        log(f"stream {b}: frames and model tensors bit-exact")
+            check_model(gather(batches, rows, "model_input"), models[b],
+                        f"run ({name}) stream {b}")
+        log(f"runs (a)/(b) stream {b}: frames and model tensors bit-exact")
+    return launches
+
+
+def phase_block_run(card: str, name: str, path: str, kernel: str, avis,
+                    src, models) -> dict:
+    """Run (c) or (d): sp_device_path `path`, dense windows of frames and
+    ds2 model tensors, checked against the source frames and the plain
+    epilogue."""
+    torch.cuda.reset_peak_memory_stats(DEV)
+    (batches, _, dt), launches = count_launches(
+        lambda: run_ingest(avis, still_elision=False, sp_device_path=path))
+    peak = torch.cuda.max_memory_allocated(DEV) / 2**30
+    log(f"run ({name}) {path}: {len(batches)} windows, {B * T} frames in "
+        f"{dt:.3f} s = {B * T / dt:.1f} delivered frames/s, peak device "
+        f"memory {peak:.2f} GiB with every window kept ({card}); launches "
+        f"{launches}")
+    require(launches[kernel] > 0 and launches["ds2_pack"] > 0,
+            f"run ({name}) launched {kernel} and ds2_pack ({launches})")
+    require(sum(v for k, v in launches.items()
+                if k not in (kernel, "ds2_pack")) == 0,
+            f"run ({name}) launched no other compose ({launches})")
+    for w in batches:
+        t0, n = w["start_frame"], w["frames_u32"].shape[1]
+        require(n == min(WINDOW, T - t0), f"run ({name}) window @{t0} "
+                f"holds {n} frames")
+        for b in range(B):
+            require(torch.equal(w["frames_u32"][b],
+                                src[b][t0:t0 + n].to(DEV)),
+                    f"run ({name}) stream {b} window @{t0} frames == "
+                    f"source frames")
+            check_model(w["model_input"][b], models[b][t0:t0 + n],
+                        f"run ({name}) stream {b} window @{t0}")
+    require(sum(w["frames_u32"].shape[1] for w in batches) == T,
+            f"run ({name}) covers {T} frames")
+    log(f"run ({name}): every stream's frames and model tensors bit-exact")
     return launches
 
 
@@ -301,16 +485,44 @@ def main() -> int:
     card = phase_env()
     phase_build()
     kernels = phase_kernels(card)
-    launches = phase_slice(card)
-    src = {"kmv_compose": ("jsplayer_tpu_torch/csrc/kmv_compose.cu",
-                           "jsplayer_tpu/kernels/sp_recon.py:173"),
-           "ds2_pack": ("jsplayer_tpu_torch/csrc/ds2_pack.cu",
-                        "jsplayer_tpu/kernels/rgb_convert.py:165")}
+
+    t0 = time.perf_counter()
+    avis, frames, chunks = make_streams()
+    src = [torch.from_numpy(f.view(np.int32)) for f in frames]
+    log(f"made {B} streams x {T} frames {X}x{Y} "
+        f"({sum(len(a) for a in avis)} AVI bytes) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    cap = capture(chunks)
+    kernels.update(phase_block_kernels(card, cap, src))
+    launches = {}
+    mxu = phase_mxu_scan(card, cap, src)
+    launches["sp_motion_mxu"] = mxu["sp_motion_mxu"]
+    del cap
+    models = model_reference(src)
+
+    kmv = phase_kmv_runs(card, avis, src, models)
+    launches.update(kmv_compose=kmv["kmv_compose"], ds2_pack=kmv["ds2_pack"])
+    for name, path, kernel in (("c", "pallas", "sp_motion_patch"),
+                               ("d", "general", "sp_compose_general")):
+        got = phase_block_run(card, name, path, kernel, avis, src, models)
+        launches[kernel] = got[kernel]
+
+    routes = {
+        "kmv_compose": ("jsplayer_tpu_torch/csrc/kmv_compose.cu",
+                        "jsplayer_tpu/kernels/sp_recon.py:173"),
+        "ds2_pack": ("jsplayer_tpu_torch/csrc/ds2_pack.cu",
+                     "jsplayer_tpu/kernels/rgb_convert.py:165"),
+        "sp_compose_general": ("jsplayer_tpu_torch/csrc/sp_motion.cu",
+                               "jsplayer_tpu/kernels/sp_recon.py:53"),
+        "sp_motion_patch": ("jsplayer_tpu_torch/csrc/sp_motion.cu",
+                            "jsplayer_tpu/kernels/sp_motion_pallas.py:55"),
+        "sp_motion_mxu": ("jsplayer_tpu_torch/csrc/sp_motion.cu",
+                          "jsplayer_tpu/kernels/sp_motion_mxu.py:36")}
     log(f"total {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src[name][0],
-         "replaces": src[name][1], "launches": launches[name],
-         **kernels[name]} for name in ("kmv_compose", "ds2_pack")]}))
+        {"name": name, "route": "cuda", "source": routes[name][0],
+         "replaces": routes[name][1], "launches": launches[name],
+         **kernels[name]} for name in routes]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

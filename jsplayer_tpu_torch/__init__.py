@@ -7,7 +7,8 @@ kernels for Hopper (csrc/) beside plain torch twins that run on the CPU.
 
 Public surface:
   VideoIngestPipeline / IngestConfig — batched AVI → model-tensor windows
-                                       (ScreenPressor kmv path)
+                                       (ScreenPressor kmv, general and
+                                       pallas paths)
   open_source / MemorySource         — byte-range sources (shared)
 """
 

@@ -93,6 +93,12 @@ def load() -> ctypes.CDLL:
                                         i32, i32, i32, i32, p]
         lib.jsp_ds2_pack.restype = i32
         lib.jsp_ds2_pack.argtypes = [p, i64, p, i64, i32, i32, i32, i32, p]
+        for name in ("jsp_sp_compose_general", "jsp_sp_motion_patch"):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = [p, i64] * 7 + [i32, i32, i32, p]
+        lib.jsp_sp_motion_mxu.restype = i32
+        lib.jsp_sp_motion_mxu.argtypes = [p, i64] * 6 + [i32, i32, i32, p]
         lib.jsp_error_string.restype = ctypes.c_char_p
         lib.jsp_error_string.argtypes = [i32]
         _lib = lib

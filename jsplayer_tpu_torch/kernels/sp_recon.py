@@ -17,6 +17,12 @@ scan (`lax.scan`, unrolled over B because vmapped rolls gather on a TPU)
 becomes a Python loop over frames; per-stream shifts are index arithmetic
 inside the kernel.
 
+The general block-command compose (``compose_frame``, the per-pixel
+gather of the reference's ``decode_sequence``/``decode_batch``) is mode
+"general" of csrc/sp_motion.cu behind ``sp_compose_general``; the same
+kernel's other modes serve sp_motion_pallas.py and sp_motion_mxu.py, whose
+wrappers share ``launch_block_kernel`` below.
+
 The numpy host helpers at the end are copies of the JAX module's (that
 module imports jax at the top, which the port never does); tests pin each
 copy against the original.
@@ -51,14 +57,30 @@ def compose_frame_kmv_ref(prev: torch.Tensor, paycode: torch.Tensor,
     return out
 
 
+def per_stream_ref(frame_ref, prev, changed, *per_stream) -> torch.Tensor:
+    """A batched step's plain twin from its one-frame twin: stream b is
+    frame_ref(prev[b], *(a[b] for a in per_stream)) where changed[b], a
+    copy of prev[b] elsewhere → [B, Y, X]."""
+    outs = [frame_ref(prev[b], *(a[b] for a in per_stream))
+            if bool(changed[b]) else prev[b].clone()
+            for b in range(prev.shape[0])]
+    return torch.stack(outs) if outs else prev.clone()
+
+
 def kmv_compose_ref(prev, paycode, mvk, changed) -> torch.Tensor:
     """Plain twin of the batched step: prev/paycode [B, Y, X], mvk
     [B, K, 2], changed [B] bool → [B, Y, X] (unchanged streams copy
     prev)."""
-    outs = [compose_frame_kmv_ref(prev[b], paycode[b], mvk[b])
-            if bool(changed[b]) else prev[b].clone()
-            for b in range(prev.shape[0])]
-    return torch.stack(outs) if outs else prev.clone()
+    return per_stream_ref(compose_frame_kmv_ref, prev, changed, paycode, mvk)
+
+
+def cpu_result(res: torch.Tensor, out) -> torch.Tensor:
+    """A wrapper's CPU branch: the plain twin's result, copied into `out`
+    when one was given."""
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
 def _planes_overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -86,11 +108,7 @@ def kmv_compose(prev: torch.Tensor, paycode: torch.Tensor, mvk: torch.Tensor,
     argument may be a strided view (e.g. paycode[:, t] of a [B, T, Y, X]
     window) as long as its [Y, X] rows are contiguous."""
     if prev.device.type == "cpu":
-        res = kmv_compose_ref(prev, paycode, mvk, changed)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
+        return cpu_result(kmv_compose_ref(prev, paycode, mvk, changed), out)
     if out is None:
         out = torch.empty_like(prev, memory_format=torch.contiguous_format)
     cuda_launch_checks("kmv_compose", prev, paycode, mvk, out)
@@ -141,19 +159,27 @@ def compose_frame_kmv(prev, paycode, mvk):
 # Scans
 # ---------------------------------------------------------------------------
 
-def decode_batch_kmv(init_frames, paycode, mvk, changed):
-    """Batched kmv scan: init [B,Y,X], paycode [B,T,Y,X], mvk [B,T,K,2],
-    changed [B,T] → frames [B,T,Y,X].  Step t composes straight into
-    frames[:, t] from frames[:, t-1]: one launch per step over all B."""
-    B, T = paycode.shape[:2]
+def scan_steps(step, init_frames, per_step, changed):
+    """The P-frame scan over a batch: init [B,Y,X], per_step a tuple of
+    [B,T,...] inputs, changed [B,T] → frames [B,T,Y,X].  Step t calls
+    step(prev, *(a[:, t] for a in per_step), changed[:, t],
+    out=frames[:, t]) with prev = frames[:, t-1]: one launch per step over
+    all B, written straight into the stack through its batch stride."""
+    B, T = changed.shape
     frames = torch.empty((B, T) + tuple(init_frames.shape[1:]),
                          dtype=init_frames.dtype, device=init_frames.device)
     prev = init_frames
     for t in range(T):
-        kmv_compose(prev, paycode[:, t], mvk[:, t], changed[:, t],
-                    out=frames[:, t])
+        step(prev, *(a[:, t] for a in per_step), changed[:, t],
+             out=frames[:, t])
         prev = frames[:, t]
     return frames
+
+
+def decode_batch_kmv(init_frames, paycode, mvk, changed):
+    """Batched kmv scan: init [B,Y,X], paycode [B,T,Y,X], mvk [B,T,K,2],
+    changed [B,T] → frames [B,T,Y,X]."""
+    return scan_steps(kmv_compose, init_frames, (paycode, mvk), changed)
 
 
 def decode_sequence_kmv(init_frame, paycode, mvk, changed):
@@ -235,6 +261,181 @@ def decode_sequence_kmv_compact_model(init_frame, paycode, mvk,
     carry, model = _scan_model(init_frame[None], paycode[None], mvk[None],
                                chg, kw)
     return carry[0], model[0]
+
+
+# ---------------------------------------------------------------------------
+# Block-command composes (csrc/sp_motion.cu): the general mode here, the
+# fused and mxu modes in sp_motion_pallas.py and sp_motion_mxu.py
+# ---------------------------------------------------------------------------
+
+def block_broadcast(vals: torch.Tensor, nby: int, nbx: int, Y: int,
+                    X: int) -> torch.Tensor:
+    """Per-block values [NB, ...] → per-pixel [Y, X, ...] over 16×16 tiles
+    (a ceil-divided block grid, cropped to the frame)."""
+    tail = tuple(vals.shape[1:])
+    v = vals.reshape((nby, 1, nbx, 1) + tail)
+    v = v.expand((nby, 16, nbx, 16) + tail)
+    return v.reshape((nby * 16, nbx * 16) + tail)[:Y, :X]
+
+
+def block_grid(Y: int, X: int) -> tuple[int, int]:
+    """(nby, nbx): the SP block grid of a [Y, X] frame, ceil-divided."""
+    return (Y + 15) // 16, (X + 15) // 16
+
+
+def pixel_grid(Y: int, X: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(yy, xx) int32 [Y, X] row and column indices."""
+    yy = torch.arange(Y, dtype=torch.int32, device=device)[:, None]
+    xx = torch.arange(X, dtype=torch.int32, device=device)[None, :]
+    return yy.expand(Y, X), xx.expand(Y, X)
+
+
+def block_masks(bts, rect, Y: int, X: int):
+    """→ (yy, xx, per-pixel block type b, in_rect) for one frame's bts [NB]
+    and rect [NB, 4] (x0, y0, x1, y1)."""
+    nby, nbx = block_grid(Y, X)
+    yy, xx = pixel_grid(Y, X, bts.device)
+    b = block_broadcast(bts, nby, nbx, Y, X)
+    r = block_broadcast(rect, nby, nbx, Y, X)
+    in_rect = ((xx >= r[..., 0]) & (xx < r[..., 2])
+               & (yy >= r[..., 1]) & (yy < r[..., 3]))
+    return yy, xx, b, in_rect
+
+
+def read_or_zero(prev: torch.Tensor, sy: torch.Tensor,
+                 sx: torch.Tensor) -> torch.Tensor:
+    """prev[sy, sx] per pixel (int64 source indices), 0 where the source
+    lies outside the frame."""
+    Y, X = prev.shape
+    inside = (sy >= 0) & (sy < Y) & (sx >= 0) & (sx < X)
+    idx = sy.clamp(0, Y - 1) * X + sx.clamp(0, X - 1)
+    got = prev.reshape(-1)[idx.reshape(-1)].reshape(sy.shape)
+    return torch.where(inside, got, torch.zeros_like(got))
+
+
+def compose_frame_ref(prev, bts, mv, rect, payload) -> torch.Tensor:
+    """Plain twin of the reference's compose_frame: prev/payload [Y, X]
+    int32 bit views, bts [NB], mv [NB, 2] (mx, my), rect [NB, 4] → [Y, X].
+    Active pixels (bts > 0, inside the rect) of motion blocks ((bts-1) & 2:
+    bts 3 and 4) read prev at the clipped source, the others payload; the
+    rest keep prev.  Sources add in int32 (wrapping, as jnp does), then
+    clip."""
+    Y, X = prev.shape
+    yy, xx, b, in_rect = block_masks(bts, rect, Y, X)
+    active = (b > 0) & in_rect
+    is_motion = active & (((b - 1) & 2) > 0)
+    is_data = active & (((b - 1) & 2) == 0)
+    m = block_broadcast(mv, *block_grid(Y, X), Y, X)
+    src_y = (yy + m[..., 1]).clamp(0, Y - 1).long()
+    src_x = (xx + m[..., 0]).clamp(0, X - 1).long()
+    moved = prev.reshape(-1)[(src_y * X + src_x).reshape(-1)].reshape(Y, X)
+    return torch.where(is_motion, moved, torch.where(is_data, payload, prev))
+
+
+def launch_block_kernel(wrapper, cfn: str, prev, pix, cmds, changed, out):
+    """The CUDA branch shared by csrc/sp_motion.cu's wrappers: check, launch
+    entry point `cfn` once for all B streams, count the launch on
+    `wrapper`.  prev/pix [B, Y, X] and out are row-contiguous int32 planes
+    (strided views such as frames[:, t] are fine), cmds [(name, tensor
+    [B, NB, *tail] with contiguous rows, tail)] in the entry point's order,
+    changed [B] bool."""
+    what = wrapper.__name__
+    if out is None:
+        out = torch.empty_like(prev, memory_format=torch.contiguous_format)
+    cuda_launch_checks(what, prev, pix, *(t for _, t, _ in cmds), out)
+    if changed.device != prev.device or changed.dtype != torch.bool:
+        raise TypeError(f"{what}: changed must be a bool tensor on the "
+                        f"frames' device")
+    B, Y, X = prev.shape
+    nby, nbx = block_grid(Y, X)
+    for name, t in (("prev", prev), ("pixels", pix), ("out", out)):
+        if t.shape != (B, Y, X) or t.stride(-1) != 1 or t.stride(-2) != X:
+            raise ValueError(f"{what}: {name} must be row-contiguous "
+                             f"[{B}, {Y}, {X}], got {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    for name, t, tail in cmds:
+        want = (B, nby * nbx) + tail
+        if t.shape != want or (B and not t[0].is_contiguous()):
+            raise ValueError(f"{what}: {name} must be {list(want)} with "
+                             f"contiguous rows, got {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    if changed.shape != (B,):
+        raise ValueError(f"{what}: changed must be [B]")
+    if _planes_overlap(out, prev):
+        raise ValueError(f"{what}: out must not alias prev (motion reads "
+                         f"would see written pixels)")
+    if B and Y and X:
+        lib = _build.load()
+        args = [prev.data_ptr(), prev.stride(0), pix.data_ptr(), pix.stride(0)]
+        for _, t, _ in cmds:
+            args += [t.data_ptr(), t.stride(0)]
+        with torch.cuda.device(prev.device):
+            rc = getattr(lib, cfn)(
+                *args, changed.data_ptr(), changed.stride(0), out.data_ptr(),
+                out.stride(0), B, Y, X,
+                torch.cuda.current_stream(prev.device).cuda_stream)
+        _build.check(rc, what)
+        wrapper.launches += 1
+    return out
+
+
+def sp_compose_general(prev, bts, mv, rect, payload, changed, out=None):
+    """One general-compose scan step for every stream of a batch:
+    prev/payload [B, Y, X] int32 bit views, bts [B, NB], mv [B, NB, 2],
+    rect [B, NB, 4] int32, changed [B] bool → out [B, Y, X] (allocated
+    unless given; it must not alias prev).  Unchanged streams copy prev and
+    their commands are not read.
+
+    Mode "general" of csrc/sp_motion.cu for tensors on the card, one launch
+    for all B; the plain twin (compose_frame_ref per stream) only for
+    tensors on the CPU."""
+    if prev.device.type == "cpu":
+        return cpu_result(per_stream_ref(compose_frame_ref, prev, changed,
+                                         bts, mv, rect, payload), out)
+    return launch_block_kernel(
+        sp_compose_general, "jsp_sp_compose_general", prev, payload,
+        [("bts", bts, ()), ("mv", mv, (2,)), ("rect", rect, (4,))], changed,
+        out)
+
+
+sp_compose_general.launches = 0  # kernel launches (the plain path does not count)
+
+
+def compose_frame(prev, bts, mv, rect, payload):
+    """The reference's signature: prev/payload [Y, X], bts [NB], mv
+    [NB, 2], rect [NB, 4] → [Y, X]."""
+    chg = torch.ones(1, dtype=torch.bool, device=prev.device)
+    return sp_compose_general(prev[None], bts[None], mv[None], rect[None],
+                              payload[None], chg)[0]
+
+
+def significance(bts, changed, insignificant_blocks) -> torch.Tensor:
+    """The scan's significant-change verdict (ScreenPressor.hx:346-352):
+    bts [..., NB], changed [...] → changed & any block above the
+    insignificant band has bts > 0."""
+    above = torch.arange(bts.shape[-1], device=bts.device) >= \
+        insignificant_blocks
+    return changed & ((bts > 0) & above).any(-1)
+
+
+def decode_batch(init_frames, bts, mv, rect, payload, changed,
+                 insignificant_blocks):
+    """Batched general decode: init [B,Y,X], bts [B,T,NB], mv [B,T,NB,2],
+    rect [B,T,NB,4], payload [B,T,Y,X], changed [B,T] → (frames
+    [B,T,Y,X], signif [B,T]); one launch per step over all B."""
+    frames = scan_steps(sp_compose_general, init_frames,
+                        (bts, mv, rect, payload), changed)
+    return frames, significance(bts, changed, insignificant_blocks)
+
+
+def decode_sequence(init_frame, bts, mv, rect, payload, changed,
+                    insignificant_blocks):
+    """One stream: init [Y,X], bts [T,NB], … → (frames [T,Y,X],
+    signif [T])."""
+    frames, signif = decode_batch(init_frame[None], bts[None], mv[None],
+                                  rect[None], payload[None], changed[None],
+                                  insignificant_blocks)
+    return frames[0], signif[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,25 @@
 """Batched video ingestion on torch: AVI sources → model-input tensors.
 
-Counterpart of jsplayer_tpu/pipeline/ingest.py for its main path, the
-ScreenPressor kmv transport: N AVI streams are demuxed on the host and
-entropy-decoded straight into the kmv transport (the native C++ decoder,
-or the pure-Python oracle where the native library is missing), then
-reconstructed on the device in windows — optionally with still-elision
-(CONCAT and PADDED layouts) and fused into model tensors.  Decoded pixels
-never round-trip to the host between windows; failures quarantine per
-stream.
+Counterpart of jsplayer_tpu/pipeline/ingest.py for its ScreenPressor
+paths.  N AVI streams are demuxed on the host and entropy-decoded (the
+native C++ decoder, or the pure-Python oracle where the native library is
+missing), then reconstructed on the device in windows.  Failures
+quarantine per stream; decoded pixels never round-trip to the host between
+windows.
+
+  * ``sp_device_path="kmv"`` (the main path): the host emits the kmv
+    transport; the device scan may elide stills (CONCAT and PADDED layouts)
+    and fuse the model epilogue.
+  * ``"general"`` and ``"pallas"``: the host captures each frame's block
+    commands (bts/mv/rect) and decoded frame (payload); the device runs the
+    block-command scan, csrc/sp_motion.cu in its general or fused mode.
+    As in the reference, these paths ignore still_elision and emit_frames.
 
 The window dicts have the reference's keys, shapes and meaning.  u32
 planes (``frames_u32``) are int32 tensors holding the u32 bits (see
 device.py); ``outmap`` stays a numpy array as in the reference.
 
-What the reference does beyond this path raises NotImplementedError
+What the reference does beyond these paths raises NotImplementedError
 naming its ROADMAP.md queue item: MSVideo1, other sp_device_path values,
 a mesh, lane containers.
 
@@ -37,8 +43,11 @@ from jsplayer_tpu.core.types import CodecType, VideoInfo
 from ..device import resolve_device, to_device, torch_to_u32
 from ..kernels import sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
+from ..kernels.sp_motion_pallas import decode_batch_fused
 
 _LANE_MAGIC = b"JLV1"  # codecs/lane_format.py _MAGIC (not imported: jax)
+#: sp_device_path values the port runs; the others raise NotImplementedError
+PORTED_SP_PATHS = ("kmv", "general", "pallas")
 
 # Process-wide host-buffer pool: window buffers are hundreds of MB and fresh
 # pages fault in slowly, so a new pipeline re-allocating them costs more
@@ -108,8 +117,8 @@ def _oracle_decode_step(dec, src: bytes, isk: bool, X: int, Y: int):
 @dataclass
 class IngestConfig:
     """The reference's IngestConfig (same fields, same defaults) plus
-    `device`.  Only the SP kmv path is ported: sp_device_path must be
-    "kmv" and mesh None (checked by VideoIngestPipeline)."""
+    `device`.  sp_device_path must be one of PORTED_SP_PATHS and mesh None
+    (checked by VideoIngestPipeline)."""
     window: int = 16  # frames per emitted window (device scan length)
     emit_model_input: bool = True
     # False → kmv windows emit ONLY model tensors (fused into the decode
@@ -122,6 +131,8 @@ class IngestConfig:
     # unpack with rgb_convert.unpack_ds2
     model_packed: bool = False
     insignificant_lines: int = 0
+    # "kmv" (kmv transport), "general" or "pallas" (captured block
+    # commands; both ignore still_elision and emit_frames)
     sp_device_path: str = "kmv"
     kmv_k: int = 2
     sparse_lane_payload: bool = False
@@ -243,25 +254,25 @@ class _StreamingFrames:
 
 class VideoIngestPipeline:
     """Iterate model-tensor windows over a batch of same-geometry
-    ScreenPressor streams (kmv transport)."""
+    ScreenPressor streams."""
 
     def __init__(self, sources: Sequence[ByteSource],
                  config: Optional[IngestConfig] = None):
         self.cfg = config or IngestConfig()
         self.device = resolve_device(self.cfg.device)
-        if self.cfg.sp_device_path != "kmv":
+        if self.cfg.sp_device_path not in PORTED_SP_PATHS:
             raise NotImplementedError(
                 f"sp_device_path={self.cfg.sp_device_path!r} is not ported "
-                f"yet (ROADMAP.md queue 1: bc item 6, lane item 7, "
-                f"kmv_sparse item 8, general/pallas item 9)")
+                f"yet (ROADMAP.md queue 1: bc item 9, lane item 10, "
+                f"kmv_sparse item 11)")
         if self.cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported yet (ROADMAP.md queue 1 "
-                "item 11)")
+                "item 13)")
         if any(s.read_range(0, 3)[:4] == _LANE_MAGIC for s in sources):
             raise NotImplementedError(
                 "lane containers are not ported yet (ROADMAP.md queue 1 "
-                "item 7)")
+                "item 10)")
         self.readers = [StreamReader(s, streaming=self.cfg.streaming)
                         for s in sources]
         info0 = self.readers[0].info
@@ -272,7 +283,7 @@ class VideoIngestPipeline:
         if info0.codec != CodecType.SCREENPRESSOR:
             raise NotImplementedError(
                 f"{info0.codec.value} streams are not ported yet "
-                f"(ROADMAP.md queue 1 item 10, MSV1)")
+                f"(ROADMAP.md queue 1 item 12, MSV1)")
         self.info = info0
         # streaming mode: a lower bound that grows as windows demux
         self.nframes = max(len(r.frames) for r in self.readers)
@@ -465,7 +476,7 @@ class VideoIngestPipeline:
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
         K = self.cfg.kmv_k
         decs = self._sp_decoders()
-        if self._sp_native:
+        if self.cfg.sp_device_path == "kmv" and self._sp_native:
             # the native decoder emits the kmv transport during decode
             if getattr(self, "_kmvbuf", None) is None:
                 # dirty rows carry each pooled plane's incremental-fill
@@ -487,8 +498,9 @@ class VideoIngestPipeline:
                             src, dec.is_key_frame(src), pc[b, t], mvk[b, t],
                             K=K, dirty=dirty[b, t]), default=(False, False))
             return self._kmv_route(pc, mvk, changed, sig, start)
-        # pure-Python host stage: oracle decode with command capture, then
-        # the numpy kmv prep; window buffers are reused across iterations
+        # command capture (bts/mv/rect + the decoded frame as payload) by
+        # the native decoder or the pure-Python oracle; window buffers are
+        # reused across iterations
         if getattr(self, "_spbuf", None) is None:
             self._spbuf = _pool_acquire(("sp",) + self._buf_key, lambda: dict(
                 bts=np.zeros((B, T, nb), dtype=np.int32),
@@ -503,18 +515,33 @@ class VideoIngestPipeline:
         for b, frames in enumerate(chunk):
             dec = decs[b]
             for t, src in enumerate(frames):
-                got = self._guard(b, lambda: _oracle_decode_step(
-                    dec, src, dec.is_key_frame(src), X, Y))
-                if got is None:  # quarantined: frozen, changed stays False
-                    continue
-                sig[b, t], cap = got
-                data = dec.previous_frame()
-                if data is not None:
-                    payload[b, t] = data.reshape(Y, X)
+                if self._sp_native:
+                    isk = dec.is_key_frame(src)
+                    got = self._guard(b, lambda: dec.decompress(
+                        src, isk, capture=True, copy=False))
+                    if got is None:  # quarantined: frozen at last good frame
+                        continue
+                    view, _sig, cap = got
+                    sig[b, t] = bool(_sig)
+                    if view is None:  # no change: the decoder's latest frame
+                        view = dec.latest_view()
+                    # the view lives until the next decompress call
+                    payload[b, t] = np.asarray(view).reshape(Y, X)
+                else:
+                    got = self._guard(b, lambda: _oracle_decode_step(
+                        dec, src, dec.is_key_frame(src), X, Y))
+                    if got is None:  # quarantined: frozen, changed stays False
+                        continue
+                    sig[b, t], cap = got
+                    data = dec.previous_frame()
+                    if data is not None:
+                        payload[b, t] = data.reshape(Y, X)
                 bts[b, t] = cap["bts"]
                 mv[b, t] = cap["mv"]
                 rect[b, t] = cap["rect"]
                 changed[b, t] = cap["changed"]
+        if self.cfg.sp_device_path != "kmv":
+            return self._block_route(bts, mv, rect, payload, changed, start)
         pcs, mvks = [], []
         for b in range(B):
             if b in self.quarantined:
@@ -532,6 +559,20 @@ class VideoIngestPipeline:
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.device)
+
+    def _block_route(self, bts, mv, rect, payload, changed, start) -> dict:
+        """The "general" and "pallas" paths: the captured commands and
+        payload go to the device as they are, one block-command scan over
+        the window (csrc/sp_motion.cu, mode general or fused), significance
+        computed on the device.  Like the reference, these paths take no
+        still-elision and no model-only emission."""
+        decode = (decode_batch_fused if self.cfg.sp_device_path == "pallas"
+                  else sp_recon.decode_batch)
+        frames, signif = decode(
+            self._carry_init(bts.shape[0]), self._put(bts), self._put(mv),
+            self._put(rect), self._put(payload), self._put(changed), 0)
+        self._carry = frames[:, -1]
+        return self._emit(frames, signif, start)
 
     def _kmv_route(self, pc, mvk, changed, sig, start) -> dict:
         """Dispatch an assembled kmv window (pc [B,T,Y,X], mvk [B,T,K,2],

@@ -119,3 +119,98 @@ def test_ingest_cuda_matches_cpu(dev, emit_frames):
                 assert torch.equal(v, b[k].cpu()), k
             else:
                 np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
+
+
+def block_commands(B, Y, X, seed, mv_range):
+    """Random SP block commands for one step of B streams (bts -1..7,
+    vectors of up to mv_range pixels, rects across their block)."""
+    rng = np.random.default_rng(seed)
+    nby, nbx = (Y + 15) // 16, (X + 15) // 16
+    nb = nby * nbx
+    bts = rng.integers(-1, 8, (B, nb)).astype(np.int32)
+    mv = rng.integers(-mv_range, mv_range + 1, (B, nb, 2)).astype(np.int32)
+    bx = (np.arange(nb) % nbx) * 16
+    by = (np.arange(nb) // nbx) * 16
+    x0 = bx + rng.integers(-2, 10, (B, nb))
+    y0 = by + rng.integers(-2, 10, (B, nb))
+    rect = np.stack([x0, y0, x0 + rng.integers(0, 12, (B, nb)),
+                     y0 + rng.integers(0, 12, (B, nb))], -1).astype(np.int32)
+    return [torch.from_numpy(a) for a in (bts, mv, rect)]
+
+
+def mode_inputs(mode, B, Y, X, seed, mv_range):
+    """(step, plain twin, argument tensors on the CPU) of one mode."""
+    from jsplayer_tpu_torch.kernels import sp_motion_mxu as PM
+    from jsplayer_tpu_torch.kernels import sp_motion_pallas as PP
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    bts, mv, rect = block_commands(B, Y, X, seed, mv_range)
+    payload = rand_u32((B, Y, X), seed=seed + 1)
+    if mode == "mxu":
+        cmds = [PM.mxu_commands(bts[b], mv[b], rect[b], payload[b])
+                for b in range(B)]
+        pc, src, im = (torch.stack(c) for c in zip(*cmds))
+        pc = pc ^ (rand_u32((B, Y, X), seed=seed + 2) & (0xFF << 24))
+        im = im + (bts == 4).to(torch.int32)  # is_motion 1 and 2
+        return PM.sp_motion_mxu, PM.compose_frame_mxu_ref, [pc, src, im]
+    if mode == "general":
+        return P.sp_compose_general, P.compose_frame_ref, [
+            bts, mv, rect, payload]
+    return PP.sp_motion_patch, PP.compose_frame_fast_ref, [
+        bts, mv, rect, payload]
+
+
+@pytest.mark.parametrize("mode", ["general", "fused", "mxu"])
+@pytest.mark.parametrize("B,Y,X,mv_range", [
+    (1, 16, 16, 4), (3, 40, 56, 30), (2, 33, 130, 300), (4, 1080, 1920, 40)])
+def test_block_kernel_modes(dev, mode, B, Y, X, mv_range):
+    """Each mode of csrc/sp_motion.cu against its plain twin, written into
+    a strided slot of a stack whose other slots stay untouched, with one
+    stream unchanged (its commands are garbage and must not be read)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import per_stream_ref
+
+    step, ref, args = mode_inputs(mode, B, Y, X, B * 100 + Y, mv_range)
+    prev = rand_u32((B, Y, X), seed=X) & 0x00FFFFFF
+    chg = torch.from_numpy(np.arange(B) % 3 != 1)
+    want = per_stream_ref(ref, prev, chg, *args)
+    stack = torch.full((B, 3, Y, X), 0x7EADBEEF, dtype=torch.int32,
+                       device=dev)
+    before = step.launches
+    step(prev.to(dev), *(a.to(dev) for a in args), chg.to(dev),
+         out=stack[:, 1])
+    torch.cuda.synchronize()
+    assert step.launches == before + 1
+    got = stack.cpu()
+    torch.testing.assert_close(got[:, 1], want, rtol=0, atol=0)
+    assert (got[:, 0] == 0x7EADBEEF).all() and (got[:, 2] == 0x7EADBEEF).all()
+
+
+@pytest.mark.parametrize("mode", ["general", "fused", "mxu"])
+def test_block_kernel_rejects_aliased_out(dev, mode):
+    step, _, args = mode_inputs(mode, 2, 16, 16, 0, 4)
+    prev = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
+    chg = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="alias"):
+        step(prev, *(a.to(dev) for a in args), chg, out=prev)
+
+
+@pytest.mark.parametrize("path", ["general", "pallas"])
+def test_block_command_ingest_cuda_matches_cpu(dev, path):
+    from jsplayer_tpu.core.source import MemorySource
+    from jsplayer_tpu_torch.pipeline import ingest as P
+
+    avis = [stills_avi(s) for s in (3, 7, 11)]
+    kw = dict(window=5, sp_device_path=path, model_downscale=2)
+    outs = {}
+    for d in ("cpu", "cuda"):
+        pipe = P.VideoIngestPipeline([MemorySource(a) for a in avis],
+                                     P.IngestConfig(device=d, **kw))
+        outs[d] = list(pipe)
+    assert len(outs["cpu"]) == len(outs["cuda"]) > 1
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert a.keys() == b.keys()
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, b[k].cpu()), k
+            else:
+                assert v == b[k], k

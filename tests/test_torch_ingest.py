@@ -292,3 +292,92 @@ def test_unported_paths_raise(what):
         srcs = [MemorySource(b"JLV1" + bytes(60))]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.VideoIngestPipeline(srcs, P.IngestConfig(**kw))
+
+
+# -- the "general" and "pallas" paths (captured block commands) --------------
+
+BLOCK_PATHS = ["general", "pallas"]
+
+
+@pytest.mark.parametrize("path", BLOCK_PATHS)
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("kw", [
+    dict(window=4),
+    dict(window=4, model_downscale=2),
+    dict(window=3, streaming=True),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_block_command_paths(path, native, kw, monkeypatch):
+    """Both host branches: native decompress(capture=True) and the
+    pure-Python oracle."""
+    from jsplayer_tpu import native as _native
+
+    if not native:
+        monkeypatch.setattr(_native, "available", lambda: False)
+    pp = compare(SP3, sp_device_path=path, **kw)
+    assert pp._sp_native is native
+
+
+@pytest.mark.parametrize("path", BLOCK_PATHS)
+def test_block_command_paths_route(path, monkeypatch):
+    """"pallas" scans with the fused compose, "general" with the general
+    one (on decoder-valid streams their frames agree, so the windows alone
+    cannot tell)."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(P, "decode_batch_fused",
+                        spy("pallas", P.decode_batch_fused))
+    monkeypatch.setattr(P.sp_recon, "decode_batch",
+                        spy("general", P.sp_recon.decode_batch))
+    pipe = P.VideoIngestPipeline([MemorySource(a) for a in SP3[:2]],
+                                 P.IngestConfig(device="cpu", window=4,
+                                                sp_device_path=path))
+    n = len(list(pipe))
+    assert calls == [path] * n and n > 1
+
+
+@pytest.mark.parametrize("path", BLOCK_PATHS)
+def test_block_command_paths_ignore_elision_and_model_only(path):
+    """As in the reference, still_elision (beyond keyframe-snapped window
+    starts) and emit_frames=False do not change these paths' windows."""
+    pp = compare(STILLS3, sp_device_path=path, window=6, still_elision=True,
+                 emit_frames=False, model_downscale=2)
+    assert pp.stats == {"concat_windows": 0, "padded_windows": 0}
+
+
+@pytest.mark.parametrize("path", BLOCK_PATHS)
+@pytest.mark.parametrize("kw", [
+    dict(window=4, frame_range=(6, 10)),
+    dict(window=3, frame_range=(2, 9), model_downscale=2),
+])
+def test_block_command_paths_frame_range(path, kw):
+    compare(SP3[:2], sp_device_path=path, **kw)
+
+
+@pytest.mark.parametrize("path", BLOCK_PATHS)
+@pytest.mark.parametrize("native", [True, False])
+def test_block_command_paths_quarantine(path, native, monkeypatch):
+    """A stream that fails mid-run freezes; its stale pooled command rows
+    never reach the frames (changed is False for them)."""
+    from jsplayer_tpu import native as _native
+
+    if not native:
+        monkeypatch.setattr(_native, "available", lambda: False)
+    jp, pp = pipelines(SP3[:2], window=4, sp_device_path=path)
+    for p in (jp, pp):
+        _poison_second_stream(p, fail_at=6)
+    assert_windows_equal(list(jp), list(pp))
+    assert pp.quarantined == jp.quarantined == {1}
+
+
+@pytest.mark.parametrize("path", ["bc", "kmv_sparse", "lane"])
+def test_unported_sp_paths_raise(path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        P.VideoIngestPipeline([MemorySource(SP3[0])],
+                              P.IngestConfig(device="cpu",
+                                             sp_device_path=path))

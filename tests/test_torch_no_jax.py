@@ -51,6 +51,28 @@ def test_port_runs_without_importing_jax():
     assert proc.stdout.strip() == "ok 16"
 
 
+TINY_PALLAS = TINY_INGEST.split("pipe = ")[0] + r"""
+pipe = jt.VideoIngestPipeline(
+    [jt.MemorySource(avi), jt.MemorySource(avi)],
+    jt.IngestConfig(window=4, sp_device_path="pallas", model_downscale=2,
+                    device="cpu"))
+frames = [w["frames_u32"] for w in pipe]
+n = sum(f.shape[1] for f in frames)
+assert [tuple(f.shape) for f in frames] == [(2, 4, 32, 32)] * 2, frames
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok", n)
+"""
+
+
+def test_pallas_path_runs_without_importing_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_PALLAS], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 8"
+
+
 def test_no_jax_import_lines():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
@@ -105,3 +127,24 @@ def test_kernel_build_raises_without_nvcc(no_cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load()
+
+
+def test_block_kernels_never_take_the_plain_path(no_cuda):
+    """The three wrappers of csrc/sp_motion.cu: a tensor off the CPU goes to
+    the kernel branch, which raises here (no card)."""
+    from jsplayer_tpu_torch.kernels.sp_motion_mxu import sp_motion_mxu
+    from jsplayer_tpu_torch.kernels.sp_motion_pallas import sp_motion_patch
+    from jsplayer_tpu_torch.kernels.sp_recon import sp_compose_general
+
+    meta = dict(dtype=torch.int32, device="meta")
+    plane = torch.empty((1, 16, 16), **meta)
+    chg = torch.ones(1, dtype=torch.bool, device="meta")
+    bts, mv, rect = (torch.empty((1, 1) + s, **meta)
+                     for s in ((), (2,), (4,)))
+    for step in (sp_compose_general, sp_motion_patch):
+        with pytest.raises(ValueError, match="CUDA"):
+            step(plane, bts, mv, rect, plane, chg)
+    with pytest.raises(ValueError, match="CUDA"):
+        sp_motion_mxu(plane, plane, mv, bts, chg)
+    assert sp_compose_general.launches == sp_motion_patch.launches == \
+        sp_motion_mxu.launches == 0
