@@ -18,11 +18,18 @@ random out-of-frame vectors.  Then it drives the port's paths on 4 SP v4
 and the MXU compose (sp_motion_mxu), which no ingest path runs, as a scan
 over one whole decoded stream.  Every frame must equal its source frame
 (the codec is lossless) and every model tensor the plain CPU epilogue, bit
-for bit.  Each path runs with every launch count set to 0 just before it
-and read just after; each kernel must have launched on its path.
+for bit.  Then phase (e), the ds2 experiments (jsplayer_tpu_torch.
+experiments): kmv_compose_ds2 (csrc/kmv_compose.cu's fused compose+ds2
+instance) on random inputs and every mode of csrc/ds_probe.cu at its
+script's full shape, each against its plain twin; then the experiments'
+entry points: exp_model_fusion2's seven variants on the 1080p bench-mix
+stream, all equal to variant A, and the three probe experiments.  Each
+path runs with every launch count set to 0 just before it and read just
+after; each kernel must have launched on its path.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
-anything.  The last line of standard output is
+anything; without the repository around it the first import fails.  The
+last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's `name, power.limit`, and before that a
 JSON object with each kernel's launches, error and times.  Imports nothing
@@ -40,6 +47,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from jsplayer_tpu_torch.experiments.common import (card_line, rand_frames,
+                                                   time_ms)
+
 B, T, Y, X = 4, 128, 1080, 1920  # the slice: 4 streams x 128 frames, 1080p
 WINDOW = 64
 DEV = torch.device("cuda", 0)  # the one card the script needs
@@ -51,32 +61,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
-
-
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """ms per call on the card: CUDA events around `iters` calls after
-    `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -254,26 +241,35 @@ def gather(batches, rows, key):
 
 def kernel_counters() -> dict:
     """name → the wrapper whose `.launches` counts that kernel's launches."""
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
     from jsplayer_tpu_torch.kernels.sp_motion_mxu import sp_motion_mxu
     from jsplayer_tpu_torch.kernels.sp_motion_pallas import sp_motion_patch
     from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose,
+                                                     kmv_compose_ds2,
                                                      sp_compose_general)
 
     return {"kmv_compose": kmv_compose, "ds2_pack": ds2_pack,
             "sp_compose_general": sp_compose_general,
             "sp_motion_patch": sp_motion_patch,
-            "sp_motion_mxu": sp_motion_mxu}
+            "sp_motion_mxu": sp_motion_mxu,
+            "kmv_compose_ds2": kmv_compose_ds2, "ds_probe": ds_probe}
 
 
 def count_launches(fn):
     """Run fn() with every kernel's launch count set to 0 just before it →
-    (fn's result, {kernel: launches during fn})."""
+    (fn's result, {kernel: launches during fn}); ds_probe's launches per
+    mode under "ds_probe_modes"."""
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+
     counters = kernel_counters()
     for w in counters.values():
         w.launches = 0
+    ds_probe.by_mode.clear()
     res = fn()
-    return res, {name: w.launches for name, w in counters.items()}
+    got = {name: w.launches for name, w in counters.items()}
+    got["ds_probe_modes"] = dict(ds_probe.by_mode)
+    return res, got
 
 
 def capture(chunks):
@@ -457,7 +453,7 @@ def phase_block_run(card: str, name: str, path: str, kernel: str, avis,
     require(launches[kernel] > 0 and launches["ds2_pack"] > 0,
             f"run ({name}) launched {kernel} and ds2_pack ({launches})")
     require(sum(v for k, v in launches.items()
-                if k not in (kernel, "ds2_pack")) == 0,
+                if k not in (kernel, "ds2_pack", "ds_probe_modes")) == 0,
             f"run ({name}) launched no other compose ({launches})")
     for w in batches:
         t0, n = w["start_frame"], w["frames_u32"].shape[1]
@@ -473,6 +469,139 @@ def phase_block_run(card: str, name: str, path: str, kernel: str, avis,
     require(sum(w["frames_u32"].shape[1] for w in batches) == T,
             f"run ({name}) covers {T} frames")
     log(f"run ({name}): every stream's frames and model tensors bit-exact")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase (e): the ds2 experiments
+
+#: the ds_probe modes, each at its script's full stack depth
+PROBE_DEPTH = {"ds2_fields": 64, "bitcast_fold": 64, "passthru": 64,
+               "pack_h": 64, "sum4": 64, "hpair_i32": 4, "hpair_lowbyte": 4,
+               "wpair_i32": 4, "block_transpose": 4}
+
+
+def rand_dev(shape, seed):
+    return rand_frames(shape, DEV, seed)
+
+
+def phase_experiment_kernels(card: str) -> dict:
+    """kmv_compose_ds2 on random B=4 inputs (wrapping vectors, an unchanged
+    stream) and an odd shape; every ds_probe mode at its script's shape
+    (BH=128, a partial last block); each bit-exact against its twin."""
+    from jsplayer_tpu_torch.experiments.probes import probe_ref
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+    from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose,
+                                                     kmv_compose_ds2,
+                                                     kmv_compose_ds2_ref)
+
+    res = {}
+    errs, mvk_rows = [], [[[3, -5], [-7, 2]], [[-2000, 1500], [1925, -1085]],
+                          [[16, 16], [-16, 0]], [[0, 1081], [-1923, -2163]]]
+    for seed, (Bk, Yk, Xk) in enumerate(((4, Y, X), (3, Y + 1, X + 3))):
+        prev = rand_dev((Bk, Yk, Xk), 10 + seed)
+        kind = (rand_dev((Bk, Yk, Xk), 20 + seed) & (0x1F << 24)) \
+            & ~(1 << 28)  # ptype 0..3, kslot 0..3
+        pc = (rand_dev((Bk, Yk, Xk), 30 + seed) & 0x00FFFFFF) | kind
+        mvk = torch.tensor(mvk_rows[:Bk], dtype=torch.int32, device=DEV)
+        chg = torch.tensor([True, True, False, True][:Bk], device=DEV)
+        got = kmv_compose_ds2(prev, pc, mvk, chg)
+        want = kmv_compose_ds2_ref(prev, pc, mvk, chg)
+        torch.cuda.synchronize()
+        errs += [max_abs_err(g, w) for g, w in zip(got, want)]
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"kmv_compose_ds2 [{Bk},{Yk},{Xk}] bit-exact vs plain")
+        if seed:
+            log(f"kmv_compose_ds2 [{Bk},{Yk},{Xk}]: bit-exact")
+            continue
+        out = torch.empty_like(prev)
+        red = torch.empty_like(got[1])
+        ms = time_ms(lambda: kmv_compose_ds2(prev, pc, mvk, chg, out=out,
+                                             red=red))
+        plain_ms = time_ms(lambda: kmv_compose_ds2_ref(prev, pc, mvk, chg))
+        unfused_ms = time_ms(lambda: ds2_pack(
+            kmv_compose(prev, pc, mvk, chg, out=out), flip=False))
+        log(f"kmv_compose_ds2 [{Bk},{Yk},{Xk}] K=2: bit-exact; kernel "
+            f"{ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, kmv_compose + "
+            f"ds2_pack {unfused_ms:.4f} ms/call ({card})")
+        res["kmv_compose_ds2"] = dict(ms=ms, plain_ms=plain_ms,
+                                      unfused_ms=unfused_ms)
+        del prev, pc, got, want, out, red
+    res["kmv_compose_ds2"]["max_abs_err"] = max(errs)
+
+    modes, frames = {}, {}
+    for mode, depth in PROBE_DEPTH.items():
+        if depth not in frames:
+            frames[depth] = rand_dev((depth, Y, X), depth)
+        f = frames[depth]
+        got = ds_probe(f, mode)
+        want = probe_ref(f, mode)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(torch.equal(got, want),
+                f"ds_probe {mode} [{depth},{Y},{X}] bit-exact vs plain")
+        ms = time_ms(lambda: ds_probe(f, mode))
+        plain_ms = time_ms(lambda: probe_ref(f, mode))
+        log(f"ds_probe {mode} [{depth},{Y},{X}] -> {list(got.shape)}: "
+            f"bit-exact; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} "
+            f"ms/call ({card})")
+        modes[mode] = dict(shape=list(got.shape), max_abs_err=err, ms=ms,
+                           plain_ms=plain_ms)
+        del got, want
+    pack_ms = time_ms(lambda: ds2_pack(frames[64]))
+    log(f"ds2_pack [64,{Y},{X}] beside ds2_fields: {pack_ms:.4f} ms/call "
+        f"({card})")
+    res["ds_probe"] = dict(max_abs_err=max(m["max_abs_err"]
+                                           for m in modes.values()),
+                           ms=modes["ds2_fields"]["ms"],
+                           plain_ms=modes["ds2_fields"]["plain_ms"],
+                           modes=modes)
+    return res
+
+
+def phase_experiments(card: str) -> dict:
+    """The experiments' entry points: exp_model_fusion2's seven variants on
+    the 1080p bench-mix stream (T=64, compacted), each equal to variant A;
+    exp_pallas_ds's six variants, exp_pallas_ds2's and exp_pallas_bisect's
+    probes at their scripts' shapes, each equal to its twin."""
+    from jsplayer_tpu_torch.experiments import (exp_model_fusion2 as F,
+                                                exp_pallas_bisect,
+                                                exp_pallas_ds,
+                                                exp_pallas_ds2)
+    from jsplayer_tpu_torch.experiments.common import require_parity
+
+    t0 = time.perf_counter()
+    init, pc, mvk, nchanged = F.load_stream(DEV)
+    log(f"bench-mix stream {F.X}x{F.Y}, {F.T} frames ({nchanged} changed), "
+        f"encoded and decoded in {time.perf_counter() - t0:.3f} s")
+    f64, f4 = rand_dev((64, Y, X), 64), rand_dev((4, Y, X), 4)
+
+    def drive():
+        return {"fusion2": F.run(init, pc, mvk),
+                "exp_pallas_ds": exp_pallas_ds.run(f64, iters=5),
+                "exp_pallas_ds2": exp_pallas_ds2.run(f64, iters=5),
+                "exp_pallas_bisect": exp_pallas_bisect.run(f4, iters=5)}
+
+    res, launches = count_launches(drive)
+    log(f"phase (e) kernel launches: {launches}")
+    for exp, r in res.items():
+        require_parity(r, exp)
+    eq = {v: r["equals_rw22"] for v, r in res["exp_pallas_ds"].items()}
+    require(eq == {v: v != "bitcast" for v in eq},
+            f"every exp_pallas_ds variant but bitcast equals rw22 ({eq})")
+    for name, r in res["fusion2"].items():
+        log(f"exp_model_fusion2 {name}: equal to A; {r['ms']:.4f} ms/call, "
+            f"{r['fps']:.1f} delivered fps ({F.T} timeline frames; {card})")
+    for exp in ("exp_pallas_ds", "exp_pallas_ds2", "exp_pallas_bisect"):
+        for name, r in res[exp].items():
+            log(f"{exp} {name} -> {r['shape']}: bit-exact; kernel "
+                f"{r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call")
+    for k in ("kmv_compose_ds2", "ds_probe", "kmv_compose", "ds2_pack"):
+        require(launches[k] > 0, f"phase (e) launched {k} ({launches})")
+    missing = set(PROBE_DEPTH) - set(launches["ds_probe_modes"])
+    require(not missing, f"phase (e) launched every ds_probe mode "
+            f"(missing {sorted(missing)})")
     return launches
 
 
@@ -506,6 +635,15 @@ def main() -> int:
                                ("d", "general", "sp_compose_general")):
         got = phase_block_run(card, name, path, kernel, avis, src, models)
         launches[kernel] = got[kernel]
+    del avis, frames, chunks, src, models
+
+    kernels.update(phase_experiment_kernels(card))
+    exp = phase_experiments(card)
+    launches.update(kmv_compose_ds2=exp["kmv_compose_ds2"],
+                    ds_probe=exp["ds_probe"])
+    kernels["ds_probe"]["modes"] = {
+        m: dict(v, launches=exp["ds_probe_modes"][m])
+        for m, v in kernels["ds_probe"]["modes"].items()}
 
     routes = {
         "kmv_compose": ("jsplayer_tpu_torch/csrc/kmv_compose.cu",
@@ -517,7 +655,13 @@ def main() -> int:
         "sp_motion_patch": ("jsplayer_tpu_torch/csrc/sp_motion.cu",
                             "jsplayer_tpu/kernels/sp_motion_pallas.py:55"),
         "sp_motion_mxu": ("jsplayer_tpu_torch/csrc/sp_motion.cu",
-                          "jsplayer_tpu/kernels/sp_motion_mxu.py:36")}
+                          "jsplayer_tpu/kernels/sp_motion_mxu.py:36"),
+        "kmv_compose_ds2": ("jsplayer_tpu_torch/csrc/kmv_compose.cu",
+                            "scripts/exp_model_fusion2.py:34"),
+        "ds_probe": ("jsplayer_tpu_torch/csrc/ds_probe.cu",
+                     "scripts/exp_pallas_ds.py:37; "
+                     "scripts/exp_pallas_ds2.py:31,35,41; "
+                     "scripts/exp_pallas_bisect.py:19-65")}
     log(f"total {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": routes[name][0],

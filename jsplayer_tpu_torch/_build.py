@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  They are compiled at
-first use with ``nvcc`` for ``sm_90a`` into one shared library under
-``build/`` at the repository root, and loaded with ctypes: pointers go in
+first use with ``nvcc`` for ``sm_90a``, one process per source, all
+started together, then linked into one shared library under ``build/`` at
+the repository root, and loaded with ctypes: pointers go in
 as ``c_void_p``, the stream as ``torch.cuda.current_stream().cuda_stream``.
 The library is rebuilt when a source is newer than it.  A failed build
 raises; nothing falls back to the plain versions.
@@ -24,12 +25,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libjsptpu_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-#: what the last build in this process did: {"seconds", "log", "cmd"}, or
-#: None when the library was up to date and only loaded
+#: what the last build in this process did: {"seconds", "log"}, or None
+#: when the library was up to date and only loaded
 last_build: Optional[dict] = None
 
 
@@ -65,18 +66,38 @@ def build() -> str:
             "nvcc not found (PATH, /usr/local/cuda/bin): the port's CUDA "
             "kernels cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = f"{LIB_PATH}.{tag}"
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed (rc {proc.returncode}): "
+                          f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader never sees half
-    last_build = {"seconds": dt, "log": proc.stdout + proc.stderr,
-                  "cmd": " ".join(cmd)}
+    last_build = {"seconds": dt, "log": "".join(logs)}
     return LIB_PATH
 
 
@@ -91,8 +112,13 @@ def load() -> ctypes.CDLL:
         lib.jsp_kmv_compose.restype = i32
         lib.jsp_kmv_compose.argtypes = [p, i64, p, i64, p, i64, p, i64, p, i64,
                                         i32, i32, i32, i32, p]
+        lib.jsp_kmv_compose_ds2.restype = i32
+        lib.jsp_kmv_compose_ds2.argtypes = [p, i64] * 6 + [i32, i32, i32, i32,
+                                                            p]
         lib.jsp_ds2_pack.restype = i32
         lib.jsp_ds2_pack.argtypes = [p, i64, p, i64, i32, i32, i32, i32, p]
+        lib.jsp_ds_probe.restype = i32
+        lib.jsp_ds_probe.argtypes = [i32, p, i64, p, i64] + [i32] * 6 + [p]
         for name in ("jsp_sp_compose_general", "jsp_sp_motion_patch"):
             fn = getattr(lib, name)
             fn.restype = i32

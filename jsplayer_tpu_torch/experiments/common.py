@@ -1,0 +1,82 @@
+"""Helpers the experiment entry points share: inputs, timing, reporting."""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+from ..device import resolve_device
+
+
+def card_line() -> str:
+    """Card 0's `name, power.limit` as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def card() -> tuple[torch.device, str]:
+    """(the first CUDA device, its card_line()).  Raises where there is no
+    card: the experiments measure the card."""
+    return resolve_device("cuda:0"), card_line()
+
+
+def rand_frames(shape, device, seed: int = 0) -> torch.Tensor:
+    """Uniform random u32 words (int32 bits) made on `device` from `seed`:
+    all 32 bits vary, so the probes' masks and wrapping sums are exercised."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2**31, 2**31, tuple(shape), dtype=torch.int32,
+                         device=device, generator=g)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """ms per call on the card: CUDA events around `iters` calls after
+    `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (bf16 through int16 views)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def measure(kernel, twin, frames: torch.Tensor, iters: int = 20) -> dict:
+    """Run `kernel(frames)` and `twin(frames)`, compare them bit for bit →
+    {"parity", "shape", "ms", "plain_ms"}.  Times are CUDA-event ms per
+    call on the card, None for tensors on the CPU."""
+    got = kernel(frames)
+    want = twin(frames)
+    res = {"parity": same_bits(got, want), "shape": list(got.shape),
+           "ms": None, "plain_ms": None}
+    del got, want
+    if frames.is_cuda:
+        res["ms"] = time_ms(lambda: kernel(frames), iters)
+        res["plain_ms"] = time_ms(lambda: twin(frames), iters)
+    return res
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def require_parity(results: dict, what: str) -> None:
+    """Raise if any entry of results {name: {"parity": bool, ...}} failed."""
+    bad = sorted(k for k, r in results.items() if not r["parity"])
+    if bad:
+        raise RuntimeError(f"{what}: not bit-exact: {bad}")

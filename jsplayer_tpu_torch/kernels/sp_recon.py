@@ -15,7 +15,9 @@ csrc/kmv_compose.cu (tensors on the card) or its plain twin
 ``kmv_compose_ref`` (torch.roll + where, tensors on the CPU).  The JAX
 scan (`lax.scan`, unrolled over B because vmapped rolls gather on a TPU)
 becomes a Python loop over frames; per-stream shifts are index arithmetic
-inside the kernel.
+inside the kernel.  ``kmv_compose_ds2`` is the same step fused with the
+packed ds2 plane of its output (the in-scan ds2 experiment,
+experiments/exp_model_fusion2.py); the ingest scan does not use it.
 
 The general block-command compose (``compose_frame``, the per-pixel
 gather of the reference's ``decode_sequence``/``decode_batch``) is mode
@@ -35,7 +37,7 @@ import torch
 
 from .. import _build
 from ..device import cuda_launch_checks
-from .rgb_convert import ds2_pack, to_model_input, unpack_ds2
+from .rgb_convert import ds2_pack, ds2_pack_ref, to_model_input, unpack_ds2
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +98,35 @@ def _planes_overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return any(x < y + n and y < x + n for x in sa for y in sb)
 
 
+def _kmv_launch_args(what, prev, paycode, mvk, changed, out) -> list:
+    """The CUDA branch's checks shared by kmv_compose and kmv_compose_ds2
+    → the (pointer, batch stride) arguments prev, paycode, mvk, changed,
+    out of their entry points."""
+    cuda_launch_checks(what, prev, paycode, mvk, out)
+    if changed.device != prev.device or changed.dtype != torch.bool:
+        raise TypeError(f"{what}: changed must be a bool tensor on the "
+                        f"frames' device")
+    B, Y, X = prev.shape
+    K = mvk.shape[-2]
+    for name, t in (("prev", prev), ("paycode", paycode), ("out", out)):
+        if t.shape != (B, Y, X) or t.stride(-1) != 1 or t.stride(-2) != X:
+            raise ValueError(f"{what}: {name} must be row-contiguous "
+                             f"[{B}, {Y}, {X}], got {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    if mvk.shape != (B, K, 2) or mvk.stride(-1) != 1 or mvk.stride(-2) != 2:
+        raise ValueError(f"{what}: mvk must be [B, K, 2] with "
+                         f"contiguous [K, 2], got {tuple(mvk.shape)}")
+    if changed.shape != (B,):
+        raise ValueError(f"{what}: changed must be [B]")
+    if _planes_overlap(out, prev):
+        raise ValueError(f"{what}: out must not alias prev (shifted "
+                         f"reads would see written pixels)")
+    args = []
+    for t in (prev, paycode, mvk, changed, out):
+        args += [t.data_ptr(), t.stride(0)]
+    return args
+
+
 def kmv_compose(prev: torch.Tensor, paycode: torch.Tensor, mvk: torch.Tensor,
                 changed: torch.Tensor, out: torch.Tensor | None = None
                 ) -> torch.Tensor:
@@ -111,34 +142,13 @@ def kmv_compose(prev: torch.Tensor, paycode: torch.Tensor, mvk: torch.Tensor,
         return cpu_result(kmv_compose_ref(prev, paycode, mvk, changed), out)
     if out is None:
         out = torch.empty_like(prev, memory_format=torch.contiguous_format)
-    cuda_launch_checks("kmv_compose", prev, paycode, mvk, out)
-    if changed.device != prev.device or changed.dtype != torch.bool:
-        raise TypeError("kmv_compose: changed must be a bool tensor on the "
-                        "frames' device")
+    args = _kmv_launch_args("kmv_compose", prev, paycode, mvk, changed, out)
     B, Y, X = prev.shape
-    K = mvk.shape[-2]
-    for name, t in (("prev", prev), ("paycode", paycode), ("out", out)):
-        if t.shape != (B, Y, X) or t.stride(-1) != 1 or t.stride(-2) != X:
-            raise ValueError(f"kmv_compose: {name} must be row-contiguous "
-                             f"[{B}, {Y}, {X}], got {tuple(t.shape)} "
-                             f"strides {t.stride()}")
-    if mvk.shape != (B, K, 2) or mvk.stride(-1) != 1 or mvk.stride(-2) != 2:
-        raise ValueError(f"kmv_compose: mvk must be [B, K, 2] with "
-                         f"contiguous [K, 2], got {tuple(mvk.shape)}")
-    if changed.shape != (B,):
-        raise ValueError("kmv_compose: changed must be [B]")
-    if _planes_overlap(out, prev):
-        raise ValueError("kmv_compose: out must not alias prev (shifted "
-                         "reads would see written pixels)")
     if B and Y and X:
         lib = _build.load()
         with torch.cuda.device(prev.device):
             rc = lib.jsp_kmv_compose(
-                prev.data_ptr(), prev.stride(0),
-                paycode.data_ptr(), paycode.stride(0),
-                mvk.data_ptr(), mvk.stride(0),
-                changed.data_ptr(), changed.stride(0),
-                out.data_ptr(), out.stride(0), B, Y, X, K,
+                *args, B, Y, X, mvk.shape[-2],
                 torch.cuda.current_stream(prev.device).cuda_stream)
         _build.check(rc, "kmv_compose")
         kmv_compose.launches += 1
@@ -146,6 +156,61 @@ def kmv_compose(prev: torch.Tensor, paycode: torch.Tensor, mvk: torch.Tensor,
 
 
 kmv_compose.launches = 0  # kernel launches (the plain path does not count)
+
+
+def kmv_compose_ds2_ref(prev, paycode, mvk, changed
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the fused step: kmv_compose_ref, then the unflipped
+    packed ds2 plane of its output → (out [B, Y, X], red [B, Y//2, X//2])."""
+    out = kmv_compose_ref(prev, paycode, mvk, changed)
+    return out, ds2_pack_ref(out, flip=False)
+
+
+def kmv_compose_ds2(prev: torch.Tensor, paycode: torch.Tensor,
+                    mvk: torch.Tensor, changed: torch.Tensor,
+                    out: torch.Tensor | None = None,
+                    red: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """kmv_compose and ds2_pack(flip=False) of its output in ONE launch:
+    the arguments of kmv_compose, plus red [B, Y//2, X//2] int32 (allocated
+    unless given; a strided view with contiguous rows is fine) → (out,
+    red).  An odd last row or column is composed and dropped from red.
+
+    The kDs2 instance of csrc/kmv_compose.cu for tensors on the card; the
+    plain twin only for tensors on the CPU.  It replaces the in-scan Pallas
+    ds2 of scripts/exp_model_fusion2.py (variant E1); the ingest scan does
+    not use it."""
+    if prev.device.type == "cpu":
+        o, r = kmv_compose_ds2_ref(prev, paycode, mvk, changed)
+        return cpu_result(o, out), cpu_result(r, red)
+    B, Y, X = prev.shape
+    if out is None:
+        out = torch.empty_like(prev, memory_format=torch.contiguous_format)
+    if red is None:
+        red = torch.empty((B, Y // 2, X // 2), dtype=torch.int32,
+                          device=prev.device)
+    args = _kmv_launch_args("kmv_compose_ds2", prev, paycode, mvk, changed,
+                            out)
+    cuda_launch_checks("kmv_compose_ds2", prev, red)
+    Wo = X // 2
+    # an empty [.., Ho, 0] plane has row stride 1
+    if red.shape != (B, Y // 2, Wo) or red.stride(-1) != 1 or (
+            red.stride(-2) != max(Wo, 1)):
+        raise ValueError(f"kmv_compose_ds2: red must be row-contiguous "
+                         f"[{B}, {Y // 2}, {Wo}], got {tuple(red.shape)} "
+                         f"strides {red.stride()}")
+    if B and Y and X:
+        lib = _build.load()
+        with torch.cuda.device(prev.device):
+            rc = lib.jsp_kmv_compose_ds2(
+                *args, red.data_ptr(), red.stride(0), B, Y, X, mvk.shape[-2],
+                torch.cuda.current_stream(prev.device).cuda_stream)
+        _build.check(rc, "kmv_compose_ds2")
+        kmv_compose_ds2.launches += 1
+    return out, red
+
+
+kmv_compose_ds2.launches = 0  # kernel launches (the plain path does not count)
 
 
 def compose_frame_kmv(prev, paycode, mvk):

@@ -214,3 +214,89 @@ def test_block_command_ingest_cuda_matches_cpu(dev, path):
                 assert torch.equal(v, b[k].cpu()), k
             else:
                 assert v == b[k], k
+
+
+def kmv_step_inputs(B, Y, X, K, seed):
+    """prev, paycode (every ptype and kslot), wrapping vectors and a
+    changed mask with one unchanged stream, on the CPU."""
+    rng = np.random.default_rng(seed)
+    prev = rand_u32((B, Y, X), seed=seed + 1)
+    word = (rng.integers(0, 1 << 24, (B, Y, X), dtype=np.uint32)
+            | (rng.integers(0, 4, (B, Y, X), dtype=np.uint32) << 24)
+            | (rng.integers(0, 8, (B, Y, X), dtype=np.uint32) << 26))
+    mvk = rng.integers(-3 * X, 3 * X, (B, K, 2)).astype(np.int32)
+    chg = np.arange(B) % 3 != 1
+    return (prev, torch.from_numpy(word.view(np.int32)),
+            torch.from_numpy(mvk), torch.from_numpy(chg))
+
+
+@pytest.mark.parametrize("B,Y,X,K", [(1, 16, 16, 1), (4, 48, 80, 2),
+                                     (3, 33, 71, 8), (2, 5, 1, 2),
+                                     (2, 1080, 1920, 2)])
+def test_kmv_compose_ds2_kernel(dev, B, Y, X, K):
+    """The fused compose+ds2 instance against kmv_compose_ref + ds2_pack_ref,
+    written into strided slots of stacks whose other slots stay untouched
+    (odd Y and X: the last row/column composes and gets no ds2 word)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose_ds2,
+                                                     kmv_compose_ds2_ref)
+
+    args = kmv_step_inputs(B, Y, X, K, seed=B * 7 + Y)
+    want_out, want_red = kmv_compose_ds2_ref(*args)
+    fill = 0x7EADBEEF
+    frames = torch.full((B, 3, Y, X), fill, dtype=torch.int32, device=dev)
+    reds = torch.full((B, 3, Y // 2, X // 2), fill, dtype=torch.int32,
+                      device=dev)
+    before = kmv_compose_ds2.launches
+    out, red = kmv_compose_ds2(*(a.to(dev) for a in args), out=frames[:, 1],
+                               red=reds[:, 1])
+    torch.cuda.synchronize()
+    assert kmv_compose_ds2.launches == before + 1
+    assert out.data_ptr() == frames[:, 1].data_ptr()
+    torch.testing.assert_close(frames[:, 1].cpu(), want_out, rtol=0, atol=0)
+    torch.testing.assert_close(reds[:, 1].cpu(), want_red, rtol=0, atol=0)
+    for s in (0, 2):
+        assert (frames[:, s] == fill).all() and (reds[:, s] == fill).all()
+
+
+def test_kmv_compose_ds2_rejects_aliased_out(dev):
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose_ds2
+
+    prev = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
+    mvk = torch.zeros((2, 2, 2), dtype=torch.int32, device=dev)
+    chg = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="alias"):
+        kmv_compose_ds2(prev, prev.clone(), mvk, chg, out=prev)
+
+
+DS_PROBE_MODES = ["ds2_fields", "bitcast_fold", "passthru", "pack_h", "sum4",
+                  "hpair_i32", "hpair_lowbyte", "wpair_i32", "block_transpose"]
+
+
+@pytest.mark.parametrize("mode", DS_PROBE_MODES)
+@pytest.mark.parametrize("C,Y,X,BH", [(1, 16, 16, 16), (2, 40, 256, 16),
+                                      (3, 33, 70, 8), (2, 37, 45, 12),
+                                      (2, 9, 1, 4), (4, 1080, 1920, 128)])
+def test_ds_probe_kernel(dev, mode, C, Y, X, BH):
+    """Each ds_probe mode against its plain twin, written into a strided
+    slot of a stack whose other slots stay untouched: Y not a multiple of
+    BH (a partial last block reads 0 past Y), odd Y and X."""
+    from jsplayer_tpu_torch.experiments.probes import probe_ref, probe_shape
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+
+    f = rand_u32((C, Y, X), seed=C * 1000 + Y + X)
+    if mode == "bitcast_fold" and X % 2:
+        with pytest.raises(ValueError, match="even"):
+            ds_probe(f.to(dev), mode, BH)
+        return
+    want = probe_ref(f, mode, BH)
+    _, Ho, Wo = probe_shape(mode, C, Y, X, BH)
+    fill = 0x7EADBEEF
+    stack = torch.full((C, 3, Ho, Wo), fill, dtype=torch.int32, device=dev)
+    before = ds_probe.by_mode[mode]
+    got = ds_probe(f.to(dev), mode, BH, out=stack[:, 1])
+    torch.cuda.synchronize()
+    # an empty output (X=1 → Wo=0) launches nothing
+    assert ds_probe.by_mode[mode] == before + int(Ho * Wo > 0)
+    assert got.data_ptr() == stack[:, 1].data_ptr()
+    torch.testing.assert_close(stack[:, 1].cpu(), want, rtol=0, atol=0)
+    assert (stack[:, 0] == fill).all() and (stack[:, 2] == fill).all()

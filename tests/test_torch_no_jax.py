@@ -148,3 +148,54 @@ def test_block_kernels_never_take_the_plain_path(no_cuda):
         sp_motion_mxu(plane, plane, mv, bts, chg)
     assert sp_compose_general.launches == sp_motion_patch.launches == \
         sp_motion_mxu.launches == 0
+
+
+TINY_EXPERIMENTS = r"""
+import importlib, pkgutil, sys
+import torch
+import jsplayer_tpu_torch.experiments as E
+names = sorted(m.name for m in pkgutil.iter_modules(E.__path__))
+for n in names:
+    importlib.import_module(f"jsplayer_tpu_torch.experiments.{n}")
+from jsplayer_tpu_torch.experiments import exp_pallas_bisect, exp_pallas_ds
+from jsplayer_tpu_torch.experiments.common import rand_frames
+from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose_ds2
+f = rand_frames((2, 20, 16), "cpu")
+assert all(r["parity"] for r in exp_pallas_ds.run(f).values())
+assert all(r["parity"] for r in exp_pallas_bisect.run(f, bh=8).values())
+z = torch.zeros((2, 2, 2), dtype=torch.int32)
+out, red = kmv_compose_ds2(f, f, z, torch.ones(2, dtype=torch.bool))
+assert red.shape == (2, 10, 8)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok", " ".join(names))
+"""
+
+
+def test_experiments_run_without_importing_jax():
+    """Every module of jsplayer_tpu_torch.experiments and kernels.ds_probe
+    imports, and the probe twins and the fused step run, without jax."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_EXPERIMENTS], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == [
+        "ok", "common", "exp_model_fusion2", "exp_pallas_bisect",
+        "exp_pallas_ds", "exp_pallas_ds2", "probes", "streams"]
+
+
+def test_experiment_kernels_never_take_the_plain_path(no_cuda):
+    """ds_probe and kmv_compose_ds2: a tensor off the CPU goes to the kernel
+    branch, which raises here (no card)."""
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose_ds2
+
+    meta = dict(dtype=torch.int32, device="meta")
+    plane = torch.empty((2, 16, 16), **meta)
+    for mode in ("ds2_fields", "block_transpose"):
+        with pytest.raises(ValueError, match="CUDA"):
+            ds_probe(plane, mode, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmv_compose_ds2(plane, plane, torch.empty((2, 2, 2), **meta),
+                        torch.ones(2, dtype=torch.bool, device="meta"))
+    assert ds_probe.launches == kmv_compose_ds2.launches == 0
