@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from jsplayer_tpu_torch/csrc/ and holds
-each against its plain torch twin on the card at 1080p, B=4: kmv_compose
-and ds2_pack on random inputs; the three modes of sp_motion.cu
+Builds the port's host library (jsplayer_tpu_torch/native/spdec.cpp, g++)
+and its CUDA kernels (jsplayer_tpu_torch/csrc/, nvcc) into build/, and
+holds each kernel against its plain torch twin on the card at 1080p, B=4:
+kmv_compose and ds2_pack on random inputs; the three modes of sp_motion.cu
 (sp_compose_general, sp_motion_patch, sp_motion_mxu) on commands the
 native decoder captured from the streams below, the general mode also on
 random out-of-frame vectors.  Then it drives the port's paths on 4 SP v4
@@ -25,15 +26,23 @@ script's full shape, each against its plain twin; then the experiments'
 entry points: exp_model_fusion2's seven variants on the 1080p bench-mix
 stream, all equal to variant A, and the three probe experiments.  Each
 path runs with every launch count set to 0 just before it and read just
-after; each kernel must have launched on its path.
+after; each kernel must have launched on its path.  Last, kmv_compose and
+kmv_compose_ds2 scan the bench-mix stream's compacted B=1 steps (the
+steps the CONCAT main path launches), bit-exact against the plain twins.
+Every kernel's `ms` is CUDA events around calls through its wrapper; the
+two kmv kernels also give `graph_ms`, the same calls replayed as a CUDA
+graph (device time without the host's launch cost).  Every time stands
+beside its bound: the bytes the function must move on this run's data
+over 3.35 TB/s.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
 anything; without the repository around it the first import fails.  The
 last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's `name, power.limit`, and before that a
-JSON object with each kernel's launches, error and times.  Imports nothing
-of JAX.
+JSON object with each kernel's launches, error, times and bound.  Imports
+nothing of JAX and nothing of jsplayer_tpu, and checks that before its
+last line.
 """
 
 from __future__ import annotations
@@ -47,8 +56,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from jsplayer_tpu_torch.experiments.common import (card_line, rand_frames,
-                                                   time_ms)
+from jsplayer_tpu_torch.experiments.common import (card_line, graph_ms,
+                                                   rand_frames, time_ms)
 
 B, T, Y, X = 4, 128, 1080, 1920  # the slice: 4 streams x 128 frames, 1080p
 WINDOW = 64
@@ -70,6 +79,78 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+#: the H100 SXM's device-memory rate, bytes a millisecond (3.35 TB/s,
+#: NVIDIA's data sheet)
+HBM_BYTES_PER_MS = 3.35e9
+
+
+def io_bytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(nbytes: int) -> dict:
+    """The bytes a call must move (each input read once, each output
+    written once) → its least time on the card.  Every kernel here is bound
+    by bytes: a few integer operations a word against 3.35 TB/s.  No single
+    PyTorch call computes any of them (packed 10-bit field sums, per-pixel
+    selects between payload and gathered prev, zero reads past a partial
+    block), so library_ms is null."""
+    return dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_MS,
+                bound_by="bytes", library_ms=None)
+
+
+def kmv_bytes(pc, mvk, chg, red=None) -> int:
+    """Bytes kmv steps must move on their data (pc [B, Y, X], one plane a
+    stream): out written for every stream; an unchanged stream reads prev;
+    a changed one reads its paycode word a pixel, and prev besides where
+    that word is not data (ptype != 1); mvk and changed read; the ds2
+    plane written."""
+    data = int(sum(int((((pc[b] >> 24) & 3) == 1).sum())
+                   for b in range(pc.shape[0]) if bool(chg[b])))
+    words = pc[0].numel() * (2 * pc.shape[0] + int(chg.sum())) - data
+    return (4 * words + io_bytes(mvk, chg)
+            + (io_bytes(red) if red is not None else 0))
+
+
+def block_bytes(name: str, prev, args, chg) -> int:
+    """Bytes one sp_motion.cu step must move on its commands: out written,
+    and one source word read a pixel (payload inside a data block's rect,
+    prev elsewhere; an unchanged stream reads prev); the mxu mode reads its
+    paycode word wherever a block is not motion, and prev besides where that
+    word's ptype is 0.  Plus the command arrays and changed."""
+    from jsplayer_tpu_torch.kernels.sp_recon import block_broadcast, block_grid
+
+    Bn, Yn, Xn = prev.shape
+    words = 2 * prev.numel()
+    if name == "sp_motion_mxu":
+        paycode, src_yx, is_motion = args
+        nby, nbx = block_grid(Yn, Xn)
+        for b in range(Bn):
+            if bool(chg[b]):
+                still = block_broadcast(is_motion[b], nby, nbx, Yn, Xn) == 0
+                copy = ((paycode[b] >> 24) & 0xFF) == 0
+                words += int((still & copy).sum())
+        cmds = io_bytes(src_yx, is_motion)
+    else:  # bts, mv, rect, payload
+        cmds = io_bytes(*args[:3])
+    return 4 * words + cmds + io_bytes(chg)
+
+
+def step_report(name: str, what: str, card: str, ms: float, graph: float,
+                plain_ms: float, nbytes: int, **extra) -> dict:
+    """Log one kmv kernel's times against its bound → its numbers: `ms`
+    CUDA events around wrapper calls, as for every kernel; `graph_ms` the
+    same calls replayed as a CUDA graph (device time without the host's
+    launch cost)."""
+    b = bound(nbytes)
+    log(f"{name} {what}: kernel {ms:.4f} ms/step through the wrapper, "
+        f"{graph:.4f} as a CUDA graph; plain {plain_ms:.4f} ms/step; "
+        f"{nbytes} bytes, bound {b['bound_ms']:.4f} ms, "
+        f"{100 * b['bound_ms'] / ms:.1f}% of bound (wrapper), "
+        f"{100 * b['bound_ms'] / graph:.1f}% (graph) ({card})")
+    return dict(ms=ms, graph_ms=graph, plain_ms=plain_ms, **b, **extra)
+
+
 # ---------------------------------------------------------------------------
 
 def phase_env() -> str:
@@ -85,10 +166,12 @@ def phase_env() -> str:
     ver = subprocess.run([nvcc, "--version"], check=True,
                          capture_output=True, text=True).stdout
     log(f"nvcc: {ver.strip().splitlines()[-1]}")
-    from jsplayer_tpu import native
+    from jsplayer_tpu_torch import native
 
+    t0 = time.perf_counter()
     ok = native.available()
-    log(f"jsplayer_tpu.native.available(): {ok}")
+    log(f"jsplayer_tpu_torch.native.available(): {ok} "
+        f"({time.perf_counter() - t0:.3f} s, g++ -> {native._LIB_PATH})")
     require(ok, "native host decoder builds and loads")
     return card
 
@@ -109,38 +192,31 @@ def phase_build() -> None:
 
 
 def phase_kernels(card: str) -> dict:
+    from jsplayer_tpu_torch.experiments.kmv_step import compose_inputs
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack, ds2_pack_ref
     from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose, kmv_compose_ref
 
     rng = np.random.default_rng(0)
     res = {}
 
-    # kmv_compose: B=4, K=2, every ptype and kslot, wrapping vectors
-    Bk, K = 4, 2
-    prev = torch.from_numpy(
-        rng.integers(0, 1 << 32, (Bk, Y, X), dtype=np.uint64)
-        .astype(np.uint32).view(np.int32)).to(DEV)
-    word = (rng.integers(0, 1 << 24, (Bk, Y, X), dtype=np.uint32)
-            | (rng.integers(0, 4, (Bk, Y, X), dtype=np.uint32) << 24)
-            | (rng.integers(0, 8, (Bk, Y, X), dtype=np.uint32) << 26))
-    pc = torch.from_numpy(word.view(np.int32)).to(DEV)
-    mvk = torch.tensor([[[3, -5], [-7, 2]],            # small, negative
-                        [[-2000, 1500], [1925, -1085]],  # out of frame
-                        [[16, 16], [-16, 0]],           # chg = 0 stream
-                        [[0, Y], [-X, -2 * Y - 1]]],    # |mv| >= Y, X
-                       dtype=torch.int32, device=DEV)
-    chg = torch.tensor([True, True, False, True], device=DEV)
+    # kmv_compose: B=4, K=2, every ptype and kslot, wrapping vectors, one
+    # unchanged stream
+    prev, pc, mvk, chg = compose_inputs(DEV)
     got = kmv_compose(prev, pc, mvk, chg)
     want = kmv_compose_ref(prev, pc, mvk, chg)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     require(torch.equal(got, want), "kmv_compose bit-exact vs plain")
     out = torch.empty_like(prev)
-    ms = time_ms(lambda: kmv_compose(prev, pc, mvk, chg, out=out))
-    plain_ms = time_ms(lambda: kmv_compose_ref(prev, pc, mvk, chg))
-    log(f"kmv_compose [{Bk},{Y},{X}] K={K}: bit-exact; kernel {ms:.4f} "
-        f"ms/call, plain {plain_ms:.4f} ms/call ({card})")
-    res["kmv_compose"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    def step():
+        kmv_compose(prev, pc, mvk, chg, out=out)
+
+    res["kmv_compose"] = dict(max_abs_err=err, **step_report(
+        "kmv_compose", f"{list(prev.shape)} K={mvk.shape[1]} random step, "
+        f"bit-exact", card, time_ms(step), graph_ms(step),
+        time_ms(lambda: kmv_compose_ref(prev, pc, mvk, chg)),
+        kmv_bytes(pc, mvk, chg)))
     del prev, pc, got, want, out
 
     # ds2_pack: [64,1080,1920] with and without flip, and an odd shape
@@ -158,12 +234,13 @@ def phase_kernels(card: str) -> dict:
                     f"ds2_pack bit-exact vs plain {shape} flip={flip}")
             ms = time_ms(lambda: ds2_pack(fr, flip=flip))
             plain_ms = time_ms(lambda: ds2_pack_ref(fr, flip=flip))
-            times[(shape, flip)] = (ms, plain_ms)
+            times[(shape, flip)] = (ms, plain_ms, io_bytes(fr, got))
             log(f"ds2_pack {list(shape)} flip={flip}: bit-exact; kernel "
                 f"{ms:.4f} ms/call, plain {plain_ms:.4f} ms/call ({card})")
         del fr, got, want
-    ms, plain_ms = times[((64, Y, X), False)]
-    res["ds2_pack"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    ms, plain_ms, nbytes = times[((64, Y, X), False)]
+    res["ds2_pack"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           **bound(nbytes))
     return res
 
 
@@ -172,12 +249,9 @@ def make_streams():
     paint events, a third stills) with keyframes at KEYFRAMES → (AVI bytes
     per stream, source frames [B] of [T, Y, X] u32, frame bytes [B] of
     [T])."""
-    from jsplayer_tpu import native
-    from jsplayer_tpu.encode.avi_mux import mux_avi
-    from jsplayer_tpu.utils.corpora import screen_mix
-
-    # load the library before the threads: native.load() is not thread-safe
-    require(native.available(), "native host encoder loads")
+    from jsplayer_tpu_torch import native
+    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+    from jsplayer_tpu_torch.utils.corpora import screen_mix
 
     def one(seed):
         frames = np.stack(screen_mix(T=T, Y=Y, X=X, seed=seed))
@@ -276,7 +350,7 @@ def capture(chunks):
     """The native decoder's capture of the streams → torch tensors on the
     card: bts [B,T,NB], mv [B,T,NB,2], rect [B,T,NB,4], payload
     [B,T,Y,X] int32 bits, changed [B,T] bool."""
-    from jsplayer_tpu import native
+    from jsplayer_tpu_torch import native
 
     t0 = time.perf_counter()
     got = native.native_sp_decode_streams(chunks, X, Y)
@@ -349,7 +423,11 @@ def phase_block_kernels(card: str, cap: dict, src) -> dict:
         plain_ms = time_ms(lambda: P.per_stream_ref(ref, prev, chg, *args))
         log(f"{name} [{B},{Y},{X}] {what}: bit-exact; kernel {ms:.4f} "
             f"ms/call, plain {plain_ms:.4f} ms/call ({card})")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound(block_bytes(name, prev, args, chg)))
+        log(f"{name}: {res[name]['bytes']} bytes, bound "
+            f"{res[name]['bound_ms']:.4f} ms, "
+            f"{100 * res[name]['bound_ms'] / ms:.1f}% of bound")
     return res
 
 
@@ -489,23 +567,18 @@ def phase_experiment_kernels(card: str) -> dict:
     """kmv_compose_ds2 on random B=4 inputs (wrapping vectors, an unchanged
     stream) and an odd shape; every ds_probe mode at its script's shape
     (BH=128, a partial last block); each bit-exact against its twin."""
-    from jsplayer_tpu_torch.experiments.probes import probe_ref
+    from jsplayer_tpu_torch.experiments.kmv_step import ds2_inputs
+    from jsplayer_tpu_torch.experiments.probes import (probe_read_words,
+                                                       probe_ref)
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
     from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose,
                                                      kmv_compose_ds2,
                                                      kmv_compose_ds2_ref)
 
-    res = {}
-    errs, mvk_rows = [], [[[3, -5], [-7, 2]], [[-2000, 1500], [1925, -1085]],
-                          [[16, 16], [-16, 0]], [[0, 1081], [-1923, -2163]]]
+    res, errs = {}, []
     for seed, (Bk, Yk, Xk) in enumerate(((4, Y, X), (3, Y + 1, X + 3))):
-        prev = rand_dev((Bk, Yk, Xk), 10 + seed)
-        kind = (rand_dev((Bk, Yk, Xk), 20 + seed) & (0x1F << 24)) \
-            & ~(1 << 28)  # ptype 0..3, kslot 0..3
-        pc = (rand_dev((Bk, Yk, Xk), 30 + seed) & 0x00FFFFFF) | kind
-        mvk = torch.tensor(mvk_rows[:Bk], dtype=torch.int32, device=DEV)
-        chg = torch.tensor([True, True, False, True][:Bk], device=DEV)
+        prev, pc, mvk, chg = ds2_inputs((Bk, Yk, Xk), seed, DEV)
         got = kmv_compose_ds2(prev, pc, mvk, chg)
         want = kmv_compose_ds2_ref(prev, pc, mvk, chg)
         torch.cuda.synchronize()
@@ -517,16 +590,19 @@ def phase_experiment_kernels(card: str) -> dict:
             continue
         out = torch.empty_like(prev)
         red = torch.empty_like(got[1])
-        ms = time_ms(lambda: kmv_compose_ds2(prev, pc, mvk, chg, out=out,
-                                             red=red))
-        plain_ms = time_ms(lambda: kmv_compose_ds2_ref(prev, pc, mvk, chg))
+        def step():
+            kmv_compose_ds2(prev, pc, mvk, chg, out=out, red=red)
+
+        res["kmv_compose_ds2"] = step_report(
+            "kmv_compose_ds2", f"[{Bk},{Yk},{Xk}] K=2 random step, "
+            f"bit-exact", card, time_ms(step), graph_ms(step),
+            time_ms(lambda: kmv_compose_ds2_ref(prev, pc, mvk, chg)),
+            kmv_bytes(pc, mvk, chg, red))
         unfused_ms = time_ms(lambda: ds2_pack(
             kmv_compose(prev, pc, mvk, chg, out=out), flip=False))
-        log(f"kmv_compose_ds2 [{Bk},{Yk},{Xk}] K=2: bit-exact; kernel "
-            f"{ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, kmv_compose + "
-            f"ds2_pack {unfused_ms:.4f} ms/call ({card})")
-        res["kmv_compose_ds2"] = dict(ms=ms, plain_ms=plain_ms,
-                                      unfused_ms=unfused_ms)
+        log(f"kmv_compose + ds2_pack on the same step: {unfused_ms:.4f} "
+            f"ms/call through the wrappers ({card})")
+        res["kmv_compose_ds2"]["unfused_ms"] = unfused_ms
         del prev, pc, got, want, out, red
     res["kmv_compose_ds2"]["max_abs_err"] = max(errs)
 
@@ -546,21 +622,100 @@ def phase_experiment_kernels(card: str) -> dict:
         log(f"ds_probe {mode} [{depth},{Y},{X}] -> {list(got.shape)}: "
             f"bit-exact; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} "
             f"ms/call ({card})")
+        nbytes = 4 * probe_read_words(mode, *f.shape) + io_bytes(got)
         modes[mode] = dict(shape=list(got.shape), max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms)
+                           plain_ms=plain_ms, **bound(nbytes))
         del got, want
     pack_ms = time_ms(lambda: ds2_pack(frames[64]))
     log(f"ds2_pack [64,{Y},{X}] beside ds2_fields: {pack_ms:.4f} ms/call "
         f"({card})")
+    fields = modes["ds2_fields"]
     res["ds_probe"] = dict(max_abs_err=max(m["max_abs_err"]
                                            for m in modes.values()),
-                           ms=modes["ds2_fields"]["ms"],
-                           plain_ms=modes["ds2_fields"]["plain_ms"],
-                           modes=modes)
+                           modes=modes, **{k: fields[k] for k in (
+                               "ms", "plain_ms", "bytes", "bound_ms",
+                               "bound_by", "library_ms")})
     return res
 
 
-def phase_experiments(card: str) -> dict:
+def load_bench_mix():
+    """The 1080p bench-mix stream's compacted kmv transport on the card →
+    (init, paycode [T', Y, X], mvk [T', K, 2], T')."""
+    from jsplayer_tpu_torch.experiments import exp_model_fusion2 as F
+
+    t0 = time.perf_counter()
+    stream = F.load_stream(DEV)
+    log(f"bench-mix stream {F.X}x{F.Y}, {F.T} frames ({stream[3]} "
+        f"changed), encoded and decoded in {time.perf_counter() - t0:.3f} s")
+    return stream
+
+
+def phase_kmv_bench_mix(card: str, stream) -> dict:
+    """Both kmv kernels on the B=1 1080p steps the CONCAT main path
+    launches: the bench-mix stream's compacted steps scanned from a zero
+    frame (prev is the step before's out), kmv_compose through
+    decode_sequence_kmv_compact, the scan the CONCAT path runs, and
+    kmv_compose_ds2 (which no ingest scan runs) through the same loop by
+    hand; every step bit-exact against the plain twins → {kernel: numbers
+    per step}.  Beside the bound on the function's bytes, dram_bound_ms
+    counts only paycode, out and red: prev, the step before's out, is warm
+    in the 50 MB L2."""
+    from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack_ref
+    from jsplayer_tpu_torch.kernels.sp_recon import (
+        decode_sequence_kmv_compact, kmv_compose_ds2, kmv_compose_ref)
+
+    init, pc, mvk, steps = stream
+    chg = torch.ones(1, dtype=torch.bool, device=DEV)
+    frames = torch.empty((steps, Y, X), dtype=torch.int32, device=DEV)
+    reds = torch.empty((steps, Y // 2, X // 2), dtype=torch.int32,
+                       device=DEV)
+
+    def compact():
+        return decode_sequence_kmv_compact(init, pc, mvk)
+
+    def fused_scan():
+        prev = init[None]
+        for t in range(steps):
+            out = frames[t:t + 1]
+            kmv_compose_ds2(prev, pc[t:t + 1], mvk[t:t + 1], chg, out=out,
+                            red=reds[t:t + 1])
+            prev = out
+        return frames, reds
+
+    def plain_scan(fused):
+        prev, outs = init[None], []
+        for t in range(steps):
+            prev = kmv_compose_ref(prev, pc[t:t + 1], mvk[t:t + 1], chg)
+            outs.append(prev)
+        out = torch.cat(outs)
+        return (out, ds2_pack_ref(out, flip=False)) if fused else out
+
+    res = {}
+    chgs = torch.ones(steps, dtype=torch.bool, device=DEV)
+    for name, scan, fused in (("kmv_compose", compact, False),
+                              ("kmv_compose_ds2", fused_scan, True)):
+        frames.fill_(0x7EADBEEF)
+        got = scan()
+        want = plain_scan(fused)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want))
+                if fused else torch.equal(got, want),
+                f"{name} bench-mix scan of {steps} steps bit-exact vs plain")
+        red = reds if fused else None
+        dram = bound(io_bytes(pc, frames, mvk, chgs)
+                     + (io_bytes(red) if fused else 0))["bound_ms"] / steps
+        res[name] = dict(steps=steps, **step_report(
+            name, f"[1,{Y},{X}] bench-mix scan, {steps} steps, bit-exact",
+            card, time_ms(scan, iters=5) / steps,
+            graph_ms(scan, iters=1, replays=10) / steps,
+            time_ms(lambda: plain_scan(fused), iters=2, warmup=1) / steps,
+            kmv_bytes(pc, mvk, chgs, red) // steps, dram_bound_ms=dram))
+        log(f"{name} bench-mix: DRAM-only bound {dram:.4f} ms/step, "
+            f"{100 * dram / res[name]['graph_ms']:.1f}% (graph)")
+    return res
+
+
+def phase_experiments(card: str, stream) -> dict:
     """The experiments' entry points: exp_model_fusion2's seven variants on
     the 1080p bench-mix stream (T=64, compacted), each equal to variant A;
     exp_pallas_ds's six variants, exp_pallas_ds2's and exp_pallas_bisect's
@@ -571,10 +726,7 @@ def phase_experiments(card: str) -> dict:
                                                 exp_pallas_ds2)
     from jsplayer_tpu_torch.experiments.common import require_parity
 
-    t0 = time.perf_counter()
-    init, pc, mvk, nchanged = F.load_stream(DEV)
-    log(f"bench-mix stream {F.X}x{F.Y}, {F.T} frames ({nchanged} changed), "
-        f"encoded and decoded in {time.perf_counter() - t0:.3f} s")
+    init, pc, mvk, _ = stream
     f64, f4 = rand_dev((64, Y, X), 64), rand_dev((4, Y, X), 4)
 
     def drive():
@@ -638,7 +790,11 @@ def main() -> int:
     del avis, frames, chunks, src, models
 
     kernels.update(phase_experiment_kernels(card))
-    exp = phase_experiments(card)
+    stream = load_bench_mix()
+    exp = phase_experiments(card, stream)
+    for name, r in phase_kmv_bench_mix(card, stream).items():
+        kernels[name]["bench_mix"] = r
+    del stream
     launches.update(kmv_compose_ds2=exp["kmv_compose_ds2"],
                     ds_probe=exp["ds_probe"])
     kernels["ds_probe"]["modes"] = {
@@ -662,6 +818,10 @@ def main() -> int:
                      "scripts/exp_pallas_ds.py:37; "
                      "scripts/exp_pallas_ds2.py:31,35,41; "
                      "scripts/exp_pallas_bisect.py:19-65")}
+    ref = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jsplayer_tpu", "jax"))
+    require(not ref, f"the run imported nothing of jax or jsplayer_tpu "
+            f"({ref})")
     log(f"total {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": routes[name][0],

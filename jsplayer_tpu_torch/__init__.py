@@ -1,18 +1,23 @@
 """jsplayer_tpu_torch — the PyTorch/CUDA port of jsplayer_tpu.
 
-It imports torch and never jax.  The host stage (AVI demux, the native
-ScreenPressor decoder, codecs, encoders) is shared with jsplayer_tpu as it
-stands; the device stage is re-written here, with hand-written CUDA
-kernels for Hopper (csrc/) beside plain torch twins that run on the CPU.
+It imports torch and never jax, and nothing of jsplayer_tpu.  The host
+stage (AVI demux in core/ and av/, the ScreenPressor codecs, the encoders,
+keyframe-window snapping in pipeline/gop.py) is a copy of jsplayer_tpu's
+modules at the same relative paths, each pinned against its original by
+tests/test_torch_host_copies.py.  The native host decoder (native/spdec.cpp)
+is built with g++ at first use into build/libjsptpu_host.so at the
+repository root.  The device stage is re-written here, with hand-written
+CUDA kernels for Hopper (csrc/, built with nvcc into build/) beside plain
+torch twins that run on the CPU.
 
 Public surface:
   VideoIngestPipeline / IngestConfig — batched AVI → model-tensor windows
                                        (ScreenPressor kmv, general and
                                        pallas paths)
-  open_source / MemorySource         — byte-range sources (shared)
+  open_source / MemorySource         — byte-range sources
 """
 
-from jsplayer_tpu.core.source import MemorySource, open_source  # noqa: F401
+from .core.source import MemorySource, open_source  # noqa: F401
 
 
 def __getattr__(name):  # lazy: keep `import jsplayer_tpu_torch` light

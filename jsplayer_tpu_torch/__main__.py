@@ -18,8 +18,7 @@ import time
 def cmd_ingest(args) -> int:
     import torch
 
-    from jsplayer_tpu.core.source import open_source
-
+    from .core.source import open_source
     from .pipeline.ingest import IngestConfig, VideoIngestPipeline
 
     pipe = VideoIngestPipeline(

@@ -15,5 +15,7 @@ Each runs as ``python -m jsplayer_tpu_torch.experiments.<name>`` on one
 CUDA card, holds every kernel against its plain twin (probes.py,
 kernels/sp_recon.py, kernels/rgb_convert.py) and prints times beside the
 card's name and power limit.  ``streams`` builds the bench-mix stream the
-fusion experiment decodes.  Nothing here imports jax.
+fusion experiment decodes; ``kmv_step`` times the two kmv kernels at a
+B=4 random step, through the wrapper and as a CUDA graph.  Nothing here
+imports jax.
 """

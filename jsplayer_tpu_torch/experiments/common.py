@@ -47,6 +47,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """ms per call of fn's device work, without the host's launch cost:
+    `iters` calls (after warm-up calls on a side stream) captured into one
+    CUDA graph, CUDA events around `replays` replays.  fn's allocations on
+    the card are made once, at capture, from the graph's own pool; its
+    host work (checks, launches) is not replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal dtype, shape and bits (bf16 through int16 views)."""
     if a.dtype != b.dtype or a.shape != b.shape:

@@ -152,6 +152,22 @@ MODES = {
 }
 
 
+def probe_read_words(mode: str, C: int, Y: int, X: int,
+                     BH: int = 128) -> int:
+    """The input words the output of ds_probe `mode` depends on (rows past
+    Y read 0 and come from no memory): what a call must read at least."""
+    if mode == "passthru":  # each block's top-left [BH/2, X/2]
+        rows = sum(min(BH // 2, Y - s) for s in range(0, Y, BH))
+        return C * rows * (X // 2)
+    if mode in ("pack_h", "sum4"):  # the first X/2 columns
+        return C * Y * (X // 2)
+    if mode in ("ds2_fields", "bitcast_fold"):  # complete 2x2 windows
+        return C * (Y // 2 * 2) * (X // 2 * 2)
+    if mode == "wpair_i32":  # complete column pairs
+        return C * Y * (X // 2 * 2)
+    return C * Y * X
+
+
 def probe_ref(frames: torch.Tensor, mode: str, BH: int = 128) -> torch.Tensor:
     """The plain twin of ds_probe `mode` on [C, Y, X] frames."""
     return MODES[mode][1](frames, BH)

@@ -4,9 +4,9 @@ A copy of the recipe of ``bench.real_stream_commands`` (bench.py): twelve
 window paints on a flat desktop, then T-1 P-frames in which every third
 frame scrolls the screen down 8 rows (motion blocks), a small paint lands
 on two frames of every three, and every third frame is a still.  The
-native encoder (jsplayer_tpu.native, shared with the JAX package) encodes
-it; the native decoder writes the kmv transport (K=2); still-elision drops
-the unchanged frames.  Nothing is cached on disk.
+port's native encoder (jsplayer_tpu_torch.native) encodes it; the native
+decoder writes the kmv transport (K=2); still-elision drops the unchanged
+frames.  Nothing is cached on disk.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ def bench_mix_stream(Y: int = 1080, X: int = 1920, T: int = 64,
                      seed: int = 0) -> list[bytes]:
     """→ the encoded frames (T chunks, a keyframe first).  Needs the native
     library, and X >= 256, Y >= 160 for the paint rectangles."""
-    from jsplayer_tpu import native
-    from jsplayer_tpu.encode.sp_enc import pack_rgb
+    from .. import native
+    from ..encode.sp_enc import pack_rgb
 
     if not native.available():
         raise RuntimeError("the native SP encoder library is unavailable")
@@ -54,7 +54,7 @@ def bench_mix_kmv(Y: int = 1080, X: int = 1920, T: int = 64, seed: int = 0,
     frames → (paycode [T', Y, X] u32, mvk [T', K, 2] i32, outmap [T] i32:
     the compacted row holding each timeline frame, -1 for the init
     frame)."""
-    from jsplayer_tpu import native
+    from .. import native
 
     kmv = native.native_sp_decode_streams_kmv(
         [bench_mix_stream(Y, X, T, seed)], X, Y, K=K)

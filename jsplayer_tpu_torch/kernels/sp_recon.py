@@ -113,7 +113,9 @@ def _kmv_launch_args(what, prev, paycode, mvk, changed, out) -> list:
             raise ValueError(f"{what}: {name} must be row-contiguous "
                              f"[{B}, {Y}, {X}], got {tuple(t.shape)} "
                              f"strides {t.stride()}")
-    if mvk.shape != (B, K, 2) or mvk.stride(-1) != 1 or mvk.stride(-2) != 2:
+    # an empty [B, 0, 2] has no layout to check: the kernel reads no slot
+    if mvk.shape != (B, K, 2) or K and (mvk.stride(-1) != 1
+                                        or mvk.stride(-2) != 2):
         raise ValueError(f"{what}: mvk must be [B, K, 2] with "
                          f"contiguous [K, 2], got {tuple(mvk.shape)}")
     if changed.shape != (B,):

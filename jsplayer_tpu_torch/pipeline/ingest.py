@@ -36,10 +36,9 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from jsplayer_tpu.core.loader import DataLoaderAVISeq
-from jsplayer_tpu.core.source import ByteSource
-from jsplayer_tpu.core.types import CodecType, VideoInfo
-
+from ..core.loader import DataLoaderAVISeq
+from ..core.source import ByteSource
+from ..core.types import CodecType, VideoInfo
 from ..device import resolve_device, to_device, torch_to_u32
 from ..kernels import sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
@@ -319,14 +318,14 @@ class VideoIngestPipeline:
             # chunks pad with no-change frames and emissions are trimmed
             keys = self._keyframe_positions()
             if len(keys) > 1:
-                from jsplayer_tpu.pipeline.gop import snap_window_starts
+                from .gop import snap_window_starts
 
                 starts = snap_window_starts(keys, self.nframes,
                                             self.cfg.window)
         return starts
 
     def _keyframe_prober(self):
-        from jsplayer_tpu.codecs.screenpressor import ScreenPressor
+        from ..codecs.screenpressor import ScreenPressor
 
         vi = self.info
         return ScreenPressor(vi.width, vi.height, vi.bpp)
@@ -454,7 +453,7 @@ class VideoIngestPipeline:
         spans windows, so window boundaries must not reset the host stage."""
         if getattr(self, "_spdecs", None) is None:
             vi = self.info
-            from jsplayer_tpu import native as _native
+            from .. import native as _native
 
             self._spdecs = []
             self._sp_native = _native.available()
@@ -462,7 +461,7 @@ class VideoIngestPipeline:
                 if self._sp_native:
                     d = _native.NativeScreenPressor(vi.width, vi.height, vi.bpp)
                 else:
-                    from jsplayer_tpu.codecs.screenpressor import ScreenPressor
+                    from ..codecs.screenpressor import ScreenPressor
 
                     d = ScreenPressor(vi.width, vi.height, vi.bpp)
                 d.preinit(self.cfg.insignificant_lines)

@@ -75,8 +75,8 @@ def test_kmv_compose_rejects_aliased_out(dev):
 
 def stills_avi(seed, nframes=12, X=48, Y=32):
     """A keyframe, then mostly stills with sparse paints and scrolls."""
-    from jsplayer_tpu.encode.avi_mux import mux_avi
-    from jsplayer_tpu.encode.sp_enc import ScreenPressorEncoder, pack_rgb
+    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+    from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder, pack_rgb
 
     rng = np.random.default_rng(seed)
     enc = ScreenPressorEncoder(4, X, Y)
@@ -98,7 +98,7 @@ def stills_avi(seed, nframes=12, X=48, Y=32):
 
 @pytest.mark.parametrize("emit_frames", [True, False])
 def test_ingest_cuda_matches_cpu(dev, emit_frames):
-    from jsplayer_tpu.core.source import MemorySource
+    from jsplayer_tpu_torch.core.source import MemorySource
     from jsplayer_tpu_torch.pipeline import ingest as P
 
     avis = [stills_avi(s) for s in (3, 7, 11)]
@@ -196,7 +196,7 @@ def test_block_kernel_rejects_aliased_out(dev, mode):
 
 @pytest.mark.parametrize("path", ["general", "pallas"])
 def test_block_command_ingest_cuda_matches_cpu(dev, path):
-    from jsplayer_tpu.core.source import MemorySource
+    from jsplayer_tpu_torch.core.source import MemorySource
     from jsplayer_tpu_torch.pipeline import ingest as P
 
     avis = [stills_avi(s) for s in (3, 7, 11)]
@@ -256,6 +256,68 @@ def test_kmv_compose_ds2_kernel(dev, B, Y, X, K):
     torch.testing.assert_close(reds[:, 1].cpu(), want_red, rtol=0, atol=0)
     for s in (0, 2):
         assert (frames[:, s] == fill).all() and (reds[:, s] == fill).all()
+
+
+def rows_view(t, offset, pad):
+    """A copy of t [B, Y, X] in a fresh buffer, as a view whose rows stay
+    contiguous but whose start lies `offset` words in and whose planes lie
+    Y*X + pad words apart (offset 1 or an odd pad: not 16-byte aligned)."""
+    B, Y, X = t.shape
+    buf = torch.full((offset + B * (Y * X + pad),), 0x5A5A5A5A,
+                     dtype=torch.int32, device=t.device)
+    v = torch.as_strided(buf, (B, Y, X), (Y * X + pad, X, 1), offset)
+    v.copy_(t)
+    return v
+
+
+# name → (B, Y, X, K, mvk rows or None for random, changed, view offset/pad)
+KMV_CASES = {
+    "x_not_4": (3, 48, 70, 2, None, [True, False, True], None),
+    "odd_y_x": (2, 33, 71, 3, None, [True, True], None),
+    "unaligned_view": (3, 40, 64, 2, None, [True, True, False], (1, 3)),
+    "odd_plane_stride": (2, 40, 64, 2, None, [True, True], (0, 2)),
+    "out_of_frame": (4, 56, 80, 2, [[[3, -5], [-7, 2]],
+                                    [[-2000, 1500], [1925, -1085]],
+                                    [[16, 16], [-16, 0]],
+                                    [[0, 56], [-80, -2 * 56 - 1]]],
+                     [True, True, False, True], None),
+    "all_unchanged": (2, 32, 64, 2, None, [False, False], None),
+    "k0": (2, 48, 80, 0, None, [True, True], None),
+    "k8": (3, 48, 80, 8, None, [True, False, True], None),
+    "k8_odd": (2, 37, 45, 8, None, [True, True], (1, 1)),
+}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("case", sorted(KMV_CASES))
+def test_kmv_compose_cases(dev, fused, case):
+    """kmv_compose and kmv_compose_ds2 against their plain twins, bit for
+    bit, on the shapes and inputs that pick each path of the kernel: X % 4
+    != 0 and odd Y, X (scalar path), views whose rows are not 16-byte
+    aligned (scalar path) or aligned (vector path), out-of-frame and |mv| >=
+    Y, X vectors, unchanged streams, K = 0 and K = 8."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose,
+                                                     kmv_compose_ds2,
+                                                     kmv_compose_ds2_ref,
+                                                     kmv_compose_ref)
+
+    B, Y, X, K, rows, chg, view = KMV_CASES[case]
+    prev, pc, mvk, _ = kmv_step_inputs(B, Y, X, K, seed=len(case) * 31 + K)
+    if rows is not None:
+        mvk = torch.tensor(rows, dtype=torch.int32)
+    chg = torch.tensor(chg)
+    args = [prev.to(dev), pc.to(dev), mvk.to(dev), chg.to(dev)]
+    if view is not None:
+        args[0], args[1] = rows_view(args[0], *view), rows_view(args[1], *view)
+    step, ref = ((kmv_compose_ds2, kmv_compose_ds2_ref) if fused
+                 else (kmv_compose, kmv_compose_ref))
+    before = step.launches
+    got = step(*args)
+    want = ref(prev, pc, mvk, chg)
+    torch.cuda.synchronize()
+    assert step.launches == before + 1
+    for g, w in zip(got, want) if fused else [(got, want)]:
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
 
 
 def test_kmv_compose_ds2_rejects_aliased_out(dev):

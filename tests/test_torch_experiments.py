@@ -181,6 +181,70 @@ def test_ds_probe_cpu_out_and_guards(mode):
         ds_probe(f, mode + "_x")
 
 
+@pytest.mark.parametrize("mode,C,Yp,Xp", [
+    (mode, *shape) for mode in sorted(probes.MODES)
+    for shape in ((1, 20, 16), (2, 13, 10), (1, 9, 11))
+    if not (mode == "bitcast_fold" and shape[2] % 2)])  # it needs even X
+def test_probe_read_words_counts_dependencies(mode, C, Yp, Xp):
+    """probe_read_words (the input side of chip_smoke.py's bound) is the
+    number of input words the twin's output depends on: flipping bit 0 of
+    a word, which every mode reads, changes the output exactly there."""
+    f = t32(frames_u32((C, Yp, Xp), seed=C + Yp))
+    base = probes.probe_ref(f, mode, 8)
+    flat = f.reshape(-1)
+    n = 0
+    for i in range(flat.numel()):
+        g = flat.clone()
+        g[i] ^= 1
+        n += not torch.equal(probes.probe_ref(g.reshape(f.shape), mode, 8),
+                             base)
+    assert probes.probe_read_words(mode, C, Yp, Xp, 8) == n
+
+
+@pytest.fixture
+def smoke(monkeypatch):
+    """chip_smoke.py as a module (its byte counts run on the CPU)."""
+    monkeypatch.syspath_prepend(ROOT)
+    return importlib.import_module("chip_smoke")
+
+
+def test_kmv_bytes_counts_what_each_pixel_reads(smoke):
+    """chip_smoke.py's kmv bound: out for every pixel; an unchanged stream
+    reads prev; a changed one reads paycode, and prev besides where the
+    word is not data (ptype != 1)."""
+    pc = torch.tensor([[[1 << 24, 0], [2 << 24, 3 << 24]],
+                       [[1 << 24, 1 << 24], [1 << 24, 0]]], dtype=torch.int32)
+    mvk = torch.zeros((2, 2, 2), dtype=torch.int32)
+    chg = torch.tensor([True, False])
+    red = torch.zeros((2, 1, 1), dtype=torch.int32)
+    words = (4 + 4 + 3) + (4 + 4)  # stream 0 has one data pixel
+    assert smoke.kmv_bytes(pc, mvk, chg) == 4 * words + 32 + 2
+    assert smoke.kmv_bytes(pc, mvk, chg, red) == 4 * words + 32 + 2 + 8
+
+
+@pytest.mark.parametrize("name", ["sp_compose_general", "sp_motion_patch",
+                                  "sp_motion_mxu"])
+def test_block_bytes_counts_one_source_word_a_pixel(smoke, name):
+    """chip_smoke.py's sp_motion.cu bound: out and one source word a pixel;
+    the mxu mode also prev where a still block's paycode word is a copy."""
+    prev = torch.zeros((2, 32, 32), dtype=torch.int32)
+    chg = torch.tensor([True, False])  # stream 1 copies prev
+    if name == "sp_motion_mxu":
+        paycode = torch.zeros_like(prev)
+        paycode[:, :16] = 1 << 24  # the top row of blocks is data
+        is_motion = torch.tensor([[1, 0, 0, 0]] * 2, dtype=torch.int32)
+        args = (paycode, torch.zeros((2, 4, 2), dtype=torch.int32), is_motion)
+        cmds = 64 + 32
+        extra = 512  # stream 0's two copy blocks read paycode and prev
+    else:
+        args = (torch.zeros((2, 4), dtype=torch.int32),
+                torch.zeros((2, 4, 2), dtype=torch.int32),
+                torch.zeros((2, 4, 4), dtype=torch.int32), prev)
+        cmds, extra = 32 + 64 + 128, 0
+    assert smoke.block_bytes(name, prev, args, chg) == \
+        4 * (2 * prev.numel() + extra) + cmds + 2
+
+
 # ---------------------------------------------------------------------------
 # Row 4: the in-scan ds2 and exp_model_fusion2's variants
 # ---------------------------------------------------------------------------

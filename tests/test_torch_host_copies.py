@@ -1,0 +1,368 @@
+"""The port's copy of the host stage against its original in jsplayer_tpu.
+
+jsplayer_tpu_torch imports nothing of jsplayer_tpu: it carries copies of the
+host modules it runs (demux, the ScreenPressor codecs, the native decoder and
+encoder, the encoders, GOP window snapping) at the same relative paths.
+Each copy is held against its original here, on the CPU: same outputs on
+the same inputs, and a text check that the copy differs from the original
+only in import lines and the repairs listed in REPAIRS."""
+
+import ctypes
+import dataclasses
+import difflib
+import enum
+import os
+import re
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jsplayer_tpu_torch as PT
+from jsplayer_tpu import native as JN
+from jsplayer_tpu.codecs.screenpressor import ScreenPressor as JSP
+from jsplayer_tpu.core.source import MemorySource as JMem
+from jsplayer_tpu.encode.avi_mux import mux_avi as j_mux
+from jsplayer_tpu.encode.mp3_synth import make_frames
+from jsplayer_tpu.encode.sp_enc import ScreenPressorEncoder as JEnc
+from jsplayer_tpu.pipeline.gop import snap_window_starts as j_snap
+from jsplayer_tpu.pipeline.ingest import StreamReader as JReader
+from jsplayer_tpu.utils.corpora import screen_mix as j_mix
+from jsplayer_tpu_torch import native as PN
+from jsplayer_tpu_torch.codecs.screenpressor import ScreenPressor as PSP
+from jsplayer_tpu_torch.core.source import MemorySource as PMem
+from jsplayer_tpu_torch.encode.avi_mux import mux_avi as p_mux
+from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder as PEnc
+from jsplayer_tpu_torch.encode.sp_enc import pack_rgb
+from jsplayer_tpu_torch.pipeline.gop import snap_window_starts as p_snap
+from jsplayer_tpu_torch.pipeline.ingest import StreamReader as PReader
+from jsplayer_tpu_torch.utils.corpora import screen_mix as p_mix
+from test_ingest import msv1_avi, sp_avi, sp_avi_stills
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF = os.path.join(ROOT, "jsplayer_tpu")
+PORT = os.path.dirname(os.path.abspath(PT.__file__))
+
+#: every copied file, by its path relative to both packages
+COPIES = [
+    "core/__init__.py", "core/source.py", "core/types.py",
+    "core/chunkbuffer.py", "core/riff.py", "core/loader.py",
+    "av/__init__.py", "av/audio_track.py", "av/mp3.py",
+    "utils/__init__.py", "utils/logging.py", "utils/corpora.py",
+    "codecs/__init__.py", "codecs/base.py", "codecs/screenpressor.py",
+    "codecs/entropy.py", "codecs/rangecoder.py", "codecs/rans.py",
+    "pipeline/gop.py", "native/__init__.py", "native/spdec.cpp",
+    "encode/__init__.py", "encode/sp_enc.py", "encode/avi_mux.py",
+]
+
+#: the repairs a copy may carry beyond its import lines: for each file,
+#: the regions (a regex for the first line, a regex for the line after the
+#: region, or None for the end of the file) in which the two texts may
+#: differ, with what the region repairs
+REPAIRS = {
+    # the library builds with g++ into build/libjsptpu_host.so, not with
+    # make into the package; load() takes a lock (reference fault 3)
+    "native/__init__.py": [(r'^"""ctypes bindings', r"^    _tried = True$")],
+    # device_trace used jax.profiler; nothing of the port calls it
+    "utils/logging.py": [(r"^TPU-era extensions", r'^"""$'),
+                         (r"^LOG = Log\(\)", None)],
+}
+
+IMPORT_LINE = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s+\S)")
+
+
+def _cut_regions(lines, regions):
+    """lines with each repair region replaced by one marker line."""
+    out, i = [], 0
+    for first, after in regions:
+        start = next(j for j in range(i, len(lines))
+                     if re.match(first, lines[j]))
+        end = len(lines) if after is None else next(
+            j for j in range(start + 1, len(lines))
+            if re.match(after, lines[j]))
+        out += lines[i:start] + [f"<repair {first}>"]
+        i = end
+    return out + lines[i:]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_differs_only_in_imports_and_repairs(rel):
+    with open(os.path.join(REF, rel)) as f:
+        ref = f.read().splitlines()
+    with open(os.path.join(PORT, rel)) as f:
+        port = f.read().splitlines()
+    regions = REPAIRS.get(rel, [])
+    ref, port = _cut_regions(ref, regions), _cut_regions(port, regions)
+    changed = [line for line in difflib.unified_diff(ref, port, lineterm="",
+                                                     n=0)
+               if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+    bad = [line for line in changed if not IMPORT_LINE.match(line[1:])]
+    assert not bad, "\n".join(bad)
+
+
+def test_every_host_module_of_the_port_is_a_listed_copy():
+    """Each module the port keeps in the copied subpackages is in COPIES
+    (so none escapes the text check)."""
+    found = []
+    for sub in ("core", "av", "utils", "codecs", "native", "encode"):
+        for name in os.listdir(os.path.join(PORT, sub)):
+            if name.endswith((".py", ".cpp")):
+                found.append(f"{sub}/{name}")
+    assert sorted(found + ["pipeline/gop.py"]) == sorted(COPIES)
+
+
+# ---------------------------------------------------------------------------
+# demux
+
+def plain(v):
+    """A value of either package → plain data (dataclasses, enums and
+    objects by their fields) for comparison across the two class trees."""
+    if isinstance(v, enum.Enum):
+        return v.value
+    if dataclasses.is_dataclass(v):
+        return {f.name: plain(getattr(v, f.name))
+                for f in dataclasses.fields(v)}
+    if isinstance(v, (list, tuple)):
+        return [plain(x) for x in v]
+    if isinstance(v, dict):
+        return {k: plain(x) for k, x in v.items()}
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if hasattr(v, "__dict__") and not callable(v):
+        return {k: plain(x) for k, x in vars(v).items()}
+    return v
+
+
+def av_avi():
+    """An SP v4 stream with two MP3 sound chunks (the A/V fixture of
+    tests/test_ingest.py)."""
+    enc = JEnc(4, 32, 32)
+    f = np.full(32 * 32, pack_rgb(5, 5, 5), dtype=np.uint32)
+    chunks = [enc.encode_i(f)]
+    for t in range(5):
+        f = f.copy()
+        f[64 + t * 32: 96 + t * 32] = pack_rgb(t + 1, 9, 9)
+        chunks.append(enc.encode_p(f))
+    mp3, _, _ = make_frames(40)
+    half = len(mp3) // 2
+    return j_mux(chunks, 32, 32, 24, codec="SPV4",
+                 keyflags=[t == 0 for t in range(6)],
+                 sound_chunks=[(1, mp3[:half]), (3, mp3[half:])])
+
+
+DEMUX_FIXTURES = {
+    "sp": lambda: sp_avi(1)[0], "sp_stills": lambda: sp_avi_stills(7)[0],
+    "msv1": lambda: msv1_avi(2)[0], "av": av_avi,
+}
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("name", sorted(DEMUX_FIXTURES))
+def test_demux_matches_reference(name, streaming):
+    """VideoInfo, frame bytes, key flags and the audio track of the port's
+    StreamReader (core/, av/, utils/logging copies) equal the
+    reference's."""
+    avi = DEMUX_FIXTURES[name]()
+    j, p = JReader(JMem(avi), streaming), PReader(PMem(avi), streaming)
+    if streaming:
+        j.fetch_upto(1 << 20)
+        p.fetch_upto(1 << 20)
+    assert plain(p.info) == plain(j.info)
+    assert plain(p.loader.frames) == plain(j.loader.frames)
+    assert len(p.loader.frames) > 5
+    assert plain(p.audio_track) == plain(j.audio_track)
+    if name == "av":
+        assert p.audio_track.time_loaded > 0
+
+
+# ---------------------------------------------------------------------------
+# codecs and encoders
+
+def sp_frames(version, n=7, X=32, Y=32, seed=0):
+    """Frames of a small screen stream: scrolls and paints."""
+    rng = np.random.default_rng(seed + version)
+    f = np.full((Y, X), pack_rgb(6, 6, 6), dtype=np.uint32)
+    out = [f.reshape(-1)]
+    for t in range(n - 1):
+        f = f.copy()
+        if t % 3 == 0:
+            f[2:, :] = f[:-2, :].copy()
+        elif t % 3 == 1:
+            f[4:8, 8:24] = pack_rgb(*rng.integers(0, 256, 3))
+        out.append(f.reshape(-1))
+    return out
+
+
+def encode(enc_cls, version, frames, keys=(0,)):
+    enc = enc_cls(version, 32, 32)
+    return [enc.encode_i(f) if t in keys else enc.encode_p(f)
+            for t, f in enumerate(frames)]
+
+
+@pytest.mark.parametrize("version", [2, 3, 4])
+def test_encoder_and_mux_match_reference(version):
+    frames = sp_frames(version)
+    keys = (0, 4)
+    got, want = encode(PEnc, version, frames, keys), \
+        encode(JEnc, version, frames, keys)
+    assert got == want
+    kw = dict(codec=f"SPV{version}", keyflags=[t in keys for t in range(7)])
+    assert p_mux(got, 32, 32, 24, **kw) == j_mux(want, 32, 32, 24, **kw)
+
+
+@pytest.mark.parametrize("version", [2, 3, 4])
+def test_oracle_decode_matches_reference(version):
+    """The pure-Python ScreenPressor (codecs/ copies: range coder, rANS,
+    entropy): is_key_frame and every decoded u32 frame."""
+    chunks = encode(JEnc, version, sp_frames(version), keys=(0, 4))
+    j, p = JSP(32, 32, 24), PSP(32, 32, 24)
+    for src in chunks + [b""]:
+        assert p.is_key_frame(src) == j.is_key_frame(src)
+        outs = []
+        for dec in (j, p):
+            dst = np.zeros(32 * 32, dtype=np.uint32)
+            if dec.is_key_frame(src):
+                res = plain(dec.decompress_i(src, dst))
+            else:
+                res = plain(dec.decompress_p(src, dst))
+            outs.append((res, dst, dec.previous_frame().copy()))
+        assert outs[1][0] == outs[0][0]
+        np.testing.assert_array_equal(outs[1][1], outs[0][1])
+        np.testing.assert_array_equal(outs[1][2], outs[0][2])
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_screen_mix_matches_reference(seed):
+    got = p_mix(T=6, Y=170, X=260, seed=seed)
+    want = j_mix(T=6, Y=170, X=260, seed=seed)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("window", [1, 3, 4, 16])
+@pytest.mark.parametrize("n_frames", [0, 1, 5, 17, 40])
+def test_snap_window_starts_matches_reference(window, n_frames):
+    for keys in ([], [0], [0, 5], [0, 3, 4, 9, 15, 30], list(range(0, 40, 7)),
+                 [2, 11, 12, 13], [0, 39]):
+        assert p_snap(keys, n_frames, window) == \
+            j_snap(keys, n_frames, window), keys
+
+
+# ---------------------------------------------------------------------------
+# the native library
+
+def test_native_library_is_the_ports_own():
+    """The port builds spdec.cpp into build/ at the repository root and
+    loads that library, apart from the reference's: their entry points
+    resolve to different addresses."""
+    assert PN.available() and JN.available()
+    assert PN._LIB_PATH == os.path.join(ROOT, "build", "libjsptpu_host.so")
+    assert os.path.exists(PN._LIB_PATH)
+    assert not PN._LIB_PATH.startswith(REF + os.sep)
+    for fn in ("sp_create", "sp_decompress_kmv2", "spenc_encode"):
+        pa = ctypes.cast(getattr(PN.load(), fn), ctypes.c_void_p).value
+        ja = ctypes.cast(getattr(JN.load(), fn), ctypes.c_void_p).value
+        assert pa != ja, fn
+
+
+def streams_of(n=3, version=4):
+    return [encode(JEnc, version, sp_frames(version, seed=s), keys=(0, 4))
+            for s in range(n)]
+
+
+def test_native_decode_streams_kmv_matches_reference():
+    streams = streams_of()
+    for K in (1, 2, 4):
+        got = PN.native_sp_decode_streams_kmv(streams, 32, 32, K=K)
+        want = JN.native_sp_decode_streams_kmv(streams, 32, 32, K=K)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert want["changed"].sum() > 3
+
+
+def test_native_decode_streams_capture_matches_reference():
+    streams = streams_of()
+    got = PN.native_sp_decode_streams(streams, 32, 32)
+    want = JN.native_sp_decode_streams(streams, 32, 32)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_native_per_frame_decode_matches_reference():
+    """decompress(capture=True) and decompress_kmv with dirty rows, the
+    two per-frame calls of the port's ingest."""
+    chunks = streams_of(1)[0] + [b""]
+    j, p = JN.NativeScreenPressor(32, 32), PN.NativeScreenPressor(32, 32)
+    for src in chunks:
+        isk = j.is_key_frame(src)
+        assert p.is_key_frame(src) == isk
+        fj, sj, cj = j.decompress(src, isk, capture=True)
+        fp, sp, cp = p.decompress(src, isk, capture=True)
+        assert sp == sj and (fp is None) == (fj is None)
+        if fj is not None:
+            np.testing.assert_array_equal(fp, fj)
+        assert plain(cp) == plain(cj)
+    nb1 = 1 + 2 * 2
+    j, p = JN.NativeScreenPressor(32, 32), PN.NativeScreenPressor(32, 32)
+    bufs = {d: (np.zeros((32, 32), np.uint32), np.zeros((2, 2), np.int32),
+                np.zeros(nb1, np.int32)) for d in ("j", "p")}
+    for src in chunks:
+        isk = j.is_key_frame(src)
+        rj = j.decompress_kmv(src, isk, *bufs["j"][:2], K=2,
+                              dirty=bufs["j"][2])
+        rp = p.decompress_kmv(src, isk, *bufs["p"][:2], K=2,
+                              dirty=bufs["p"][2])
+        assert rp == rj
+        for a, b in zip(bufs["p"], bufs["j"]):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("version", [2, 3, 4])
+def test_native_encoder_matches_reference(version):
+    frames = sp_frames(version, n=6)
+    outs = []
+    for mod in (JN, PN):
+        enc = mod.NativeScreenPressorEncoder(version, 32, 32)
+        outs.append([enc.encode_i(frames[0])]
+                    + [enc.encode_p(f) for f in frames[1:]]
+                    + [enc.encode_flat(0x123456)])
+    assert outs[1] == outs[0]
+    # and the native encoder is byte-identical to the Python one
+    assert outs[1][:-1] == encode(PEnc, version, frames)
+
+
+def test_native_load_is_thread_safe(monkeypatch):
+    """Eight threads call the port's load() at once while the first is
+    still loading: every thread gets the same library (the lock repairs
+    ROADMAP §3 reference fault 3)."""
+    real = ctypes.CDLL
+
+    def slow_cdll(*a, **kw):
+        time.sleep(0.3)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(PN, "_lib", None)
+    monkeypatch.setattr(PN, "_tried", False)
+    monkeypatch.setattr(ctypes, "CDLL", slow_cdll)
+    got = [None] * 8
+    start = threading.Barrier(8)
+
+    def one(i):
+        start.wait()
+        got[i] = PN.load()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    monkeypatch.setattr(ctypes, "CDLL", real)
+    assert all(lib is not None for lib in got)
+    assert len({id(lib) for lib in got}) == 1

@@ -49,6 +49,16 @@ def pipelines(avis, **kw):
                                   P.IngestConfig(device="cpu", **kw)))
 
 
+def no_native(monkeypatch):
+    """Both packages' host stages take the pure-Python oracle branch (the
+    port has its own native library)."""
+    from jsplayer_tpu import native as j_native
+    from jsplayer_tpu_torch import native as p_native
+
+    for mod in (j_native, p_native):
+        monkeypatch.setattr(mod, "available", lambda: False)
+
+
 def compare(avis, **kw):
     jp, pp = pipelines(avis, **kw)
     assert_windows_equal(list(jp), list(pp))
@@ -185,10 +195,8 @@ def _poison_second_stream(pipe, fail_at, setattr_through=False):
 @pytest.mark.parametrize("native", [True, False])
 @pytest.mark.parametrize("elide", [False, True])
 def test_quarantined_bad_stream(native, elide, monkeypatch):
-    from jsplayer_tpu import native as _native
-
     if not native:
-        monkeypatch.setattr(_native, "available", lambda: False)
+        no_native(monkeypatch)
     jp, pp = pipelines(SP3[:2], window=4, still_elision=elide)
     for p in (jp, pp):
         _poison_second_stream(p, fail_at=6)
@@ -202,9 +210,7 @@ def test_quarantined_bad_stream(native, elide, monkeypatch):
     dict(window=6, still_elision=True, emit_frames=False, model_downscale=2),
 ])
 def test_pure_python_host_branch(kw, monkeypatch):
-    from jsplayer_tpu import native as _native
-
-    monkeypatch.setattr(_native, "available", lambda: False)
+    no_native(monkeypatch)
     avis = STILLS3[:2] if kw.get("still_elision") else SP3[:2]
     pp = compare(avis, **kw)
     assert pp._sp_native is False
@@ -309,10 +315,8 @@ BLOCK_PATHS = ["general", "pallas"]
 def test_block_command_paths(path, native, kw, monkeypatch):
     """Both host branches: native decompress(capture=True) and the
     pure-Python oracle."""
-    from jsplayer_tpu import native as _native
-
     if not native:
-        monkeypatch.setattr(_native, "available", lambda: False)
+        no_native(monkeypatch)
     pp = compare(SP3, sp_device_path=path, **kw)
     assert pp._sp_native is native
 
@@ -364,10 +368,8 @@ def test_block_command_paths_frame_range(path, kw):
 def test_block_command_paths_quarantine(path, native, monkeypatch):
     """A stream that fails mid-run freezes; its stale pooled command rows
     never reach the frames (changed is False for them)."""
-    from jsplayer_tpu import native as _native
-
     if not native:
-        monkeypatch.setattr(_native, "available", lambda: False)
+        no_native(monkeypatch)
     jp, pp = pipelines(SP3[:2], window=4, sp_device_path=path)
     for p in (jp, pp):
         _poison_second_stream(p, fail_at=6)

@@ -1,6 +1,7 @@
 """The port stands without JAX and never falls back from the card: its
-package imports no jax, asking for CUDA where there is none raises, and a
-kernel wrapper given a tensor that is not on the CPU launches or raises —
+package imports no jax and nothing of jsplayer_tpu (it runs on its own
+copies of the host stage), asking for CUDA where there is none raises, and
+a kernel wrapper given a tensor that is not on the CPU launches or raises —
 it never takes the plain version."""
 
 import os
@@ -19,8 +20,8 @@ TINY_INGEST = r"""
 import sys
 import numpy as np
 import jsplayer_tpu_torch as jt
-from jsplayer_tpu.encode.avi_mux import mux_avi
-from jsplayer_tpu.encode.sp_enc import ScreenPressorEncoder
+from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder
 
 enc = ScreenPressorEncoder(4, 32, 32)
 f = np.full(32 * 32, 0x102030, dtype=np.uint32)
@@ -38,6 +39,8 @@ pipe = jt.VideoIngestPipeline(
 n = sum(int(np.asarray(b["outmap"]).size) for b in pipe)
 assert n == 2 * 8, n
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
 print("ok", n)
 """
 
@@ -60,6 +63,8 @@ frames = [w["frames_u32"] for w in pipe]
 n = sum(f.shape[1] for f in frames)
 assert [tuple(f.shape) for f in frames] == [(2, 4, 32, 32)] * 2, frames
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
 print("ok", n)
 """
 
@@ -73,13 +78,47 @@ def test_pallas_path_runs_without_importing_jax():
     assert proc.stdout.strip() == "ok 8"
 
 
-def test_no_jax_import_lines():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+def port_sources():
+    """chip_smoke.py and every .py file of the port's package."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jsplayer_tpu_torch")):
         paths += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    offenders = [p for p in paths if pat.search(open(p).read())]
-    assert len(paths) > 5 and not offenders, offenders
+    return paths
+
+
+#: an import line of the JAX package (jsplayer_tpu_torch itself is fine)
+REFERENCE_IMPORT = re.compile(r"^\s*(from|import)\s+jsplayer_tpu(\.|\s|$)",
+                              re.M)
+
+
+def offenders(pat):
+    paths = port_sources()
+    assert len(paths) > 30, paths
+    return [p for p in paths if pat.search(open(p).read())]
+
+
+def test_no_jax_import_lines():
+    assert not offenders(re.compile(r"^\s*(import jax|from jax)", re.M))
+
+
+def test_no_reference_import_lines():
+    """The port runs on its own copies of the host stage: no line of it or
+    of chip_smoke.py imports jsplayer_tpu."""
+    assert not offenders(REFERENCE_IMPORT)
+
+
+def test_reference_import_scan_catches_each_form():
+    """The scan's pattern refuses every way of naming the JAX package and
+    none of the port's."""
+    pat = REFERENCE_IMPORT
+    for line in ("import jsplayer_tpu", "from jsplayer_tpu import native",
+                 "    from jsplayer_tpu.core.source import MemorySource",
+                 "import jsplayer_tpu.native as n"):
+        assert pat.search(line), line
+    for line in ("import jsplayer_tpu_torch",
+                 "from jsplayer_tpu_torch.native import load",
+                 "    from .. import native", "# from jsplayer_tpu import x"):
+        assert not pat.search(line), line
 
 
 @pytest.fixture
@@ -166,7 +205,12 @@ assert all(r["parity"] for r in exp_pallas_bisect.run(f, bh=8).values())
 z = torch.zeros((2, 2, 2), dtype=torch.int32)
 out, red = kmv_compose_ds2(f, f, z, torch.ones(2, dtype=torch.bool))
 assert red.shape == (2, 10, 8)
+from jsplayer_tpu_torch.experiments.kmv_step import ds2_inputs
+out, red = kmv_compose_ds2(*ds2_inputs((3, 21, 17), 1, "cpu"))
+assert out.shape == (3, 21, 17) and red.shape == (3, 10, 8)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
 print("ok", " ".join(names))
 """
 
@@ -181,7 +225,7 @@ def test_experiments_run_without_importing_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == [
         "ok", "common", "exp_model_fusion2", "exp_pallas_bisect",
-        "exp_pallas_ds", "exp_pallas_ds2", "probes", "streams"]
+        "exp_pallas_ds", "exp_pallas_ds2", "kmv_step", "probes", "streams"]
 
 
 def test_experiment_kernels_never_take_the_plain_path(no_cuda):
