@@ -8,8 +8,9 @@ holds each kernel against its plain torch twin on the card at 1080p, B=4:
 kmv_compose and ds2_pack on random inputs; the three modes of sp_motion.cu
 (sp_compose_general, sp_motion_patch, sp_motion_mxu) on commands the
 native decoder captured from the streams below, the general mode also on
-random out-of-frame vectors.  Then it drives the port's paths on 4 SP v4
-1080p streams of 128 frames through jsplayer_tpu_torch.VideoIngestPipeline:
+random out-of-frame vectors, and each mode again as a scan of stream 0's
+B=1 steps.  Then it drives the port's paths on 4 SP v4 1080p streams of
+128 frames through jsplayer_tpu_torch.VideoIngestPipeline:
 
   (a) kmv, still-elided, frames + ds2 model tensors (the main path);
   (b) the same, model tensors only;
@@ -30,10 +31,11 @@ after; each kernel must have launched on its path.  Last, kmv_compose and
 kmv_compose_ds2 scan the bench-mix stream's compacted B=1 steps (the
 steps the CONCAT main path launches), bit-exact against the plain twins.
 Every kernel's `ms` is CUDA events around calls through its wrapper; the
-two kmv kernels also give `graph_ms`, the same calls replayed as a CUDA
-graph (device time without the host's launch cost).  Every time stands
-beside its bound: the bytes the function must move on this run's data
-over 3.35 TB/s.
+compose kernels and every ds_probe mode also give `graph_ms`, the same
+calls replayed as a CUDA graph (device time without the host's launch
+cost).  Every time stands beside its bound: the bytes the function must
+move on this run's data over 3.35 TB/s; the B=1 scans add a DRAM-only
+bound without the reads of prev, the step before's out, warm in L2.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
 anything; without the repository around it the first import fails.  The
@@ -51,19 +53,23 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from jsplayer_tpu_torch.experiments.common import (card_line, graph_ms,
+from jsplayer_tpu_torch.experiments.block_step import (B, T, X, Y,
+                                                       motion_step,
+                                                       screen_streams)
+from jsplayer_tpu_torch.experiments.common import (HBM_BYTES_PER_MS,
+                                                   block_bytes, card_line,
+                                                   graph_ms, io_bytes,
                                                    rand_frames, time_ms)
 
-B, T, Y, X = 4, 128, 1080, 1920  # the slice: 4 streams x 128 frames, 1080p
+# the slice: block_step's captured streams, B=4 x T=128 frames, 1080p,
+# keyframes at 0 and 40: windows [0,40) [40,104) CONCAT, [104,128) starts
+# mid-GOP -> PADDED
 WINDOW = 64
 DEV = torch.device("cuda", 0)  # the one card the script needs
-KEYFRAMES = (0, 40)  # shared keyframes: windows [0,40) [40,104) CONCAT,
-#                      [104,128) starts mid-GOP -> PADDED
 
 
 def log(msg: str) -> None:
@@ -77,15 +83,6 @@ def require(cond: bool, what: str) -> None:
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
-
-
-#: the H100 SXM's device-memory rate, bytes a millisecond (3.35 TB/s,
-#: NVIDIA's data sheet)
-HBM_BYTES_PER_MS = 3.35e9
-
-
-def io_bytes(*ts: torch.Tensor) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def bound(nbytes: int) -> dict:
@@ -112,36 +109,12 @@ def kmv_bytes(pc, mvk, chg, red=None) -> int:
             + (io_bytes(red) if red is not None else 0))
 
 
-def block_bytes(name: str, prev, args, chg) -> int:
-    """Bytes one sp_motion.cu step must move on its commands: out written,
-    and one source word read a pixel (payload inside a data block's rect,
-    prev elsewhere; an unchanged stream reads prev); the mxu mode reads its
-    paycode word wherever a block is not motion, and prev besides where that
-    word's ptype is 0.  Plus the command arrays and changed."""
-    from jsplayer_tpu_torch.kernels.sp_recon import block_broadcast, block_grid
-
-    Bn, Yn, Xn = prev.shape
-    words = 2 * prev.numel()
-    if name == "sp_motion_mxu":
-        paycode, src_yx, is_motion = args
-        nby, nbx = block_grid(Yn, Xn)
-        for b in range(Bn):
-            if bool(chg[b]):
-                still = block_broadcast(is_motion[b], nby, nbx, Yn, Xn) == 0
-                copy = ((paycode[b] >> 24) & 0xFF) == 0
-                words += int((still & copy).sum())
-        cmds = io_bytes(src_yx, is_motion)
-    else:  # bts, mv, rect, payload
-        cmds = io_bytes(*args[:3])
-    return 4 * words + cmds + io_bytes(chg)
-
-
 def step_report(name: str, what: str, card: str, ms: float, graph: float,
                 plain_ms: float, nbytes: int, **extra) -> dict:
-    """Log one kmv kernel's times against its bound → its numbers: `ms`
-    CUDA events around wrapper calls, as for every kernel; `graph_ms` the
-    same calls replayed as a CUDA graph (device time without the host's
-    launch cost)."""
+    """Log one compose kernel's times against its bound → its numbers:
+    `ms` CUDA events around wrapper calls, as for every kernel; `graph_ms`
+    the same calls replayed as a CUDA graph (device time without the
+    host's launch cost)."""
     b = bound(nbytes)
     log(f"{name} {what}: kernel {ms:.4f} ms/step through the wrapper, "
         f"{graph:.4f} as a CUDA graph; plain {plain_ms:.4f} ms/step; "
@@ -242,30 +215,6 @@ def phase_kernels(card: str) -> dict:
     res["ds2_pack"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                            **bound(nbytes))
     return res
-
-
-def make_streams():
-    """B SP v4 1080p streams of T frames, the bench screen mix (scroll +
-    paint events, a third stills) with keyframes at KEYFRAMES → (AVI bytes
-    per stream, source frames [B] of [T, Y, X] u32, frame bytes [B] of
-    [T])."""
-    from jsplayer_tpu_torch import native
-    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
-    from jsplayer_tpu_torch.utils.corpora import screen_mix
-
-    def one(seed):
-        frames = np.stack(screen_mix(T=T, Y=Y, X=X, seed=seed))
-        enc = native.NativeScreenPressorEncoder(4, X, Y)
-        chunks = [enc.encode_i(f.reshape(-1)) if t in KEYFRAMES
-                  else enc.encode_p(f.reshape(-1))
-                  for t, f in enumerate(frames)]
-        keys = [t in KEYFRAMES for t in range(T)]
-        return (mux_avi(chunks, X, Y, 24, codec="SPV4", keyflags=keys),
-                frames, chunks)
-
-    with ThreadPoolExecutor(B) as ex:
-        got = list(ex.map(one, range(B)))
-    return tuple([g[i] for g in got] for i in range(3))
 
 
 def run_ingest(avis, still_elision=True, **kw):
@@ -373,11 +322,9 @@ def phase_block_kernels(card: str, cap: dict, src) -> dict:
 
     # the step with the most full-block motion over all streams, every
     # stream changed
-    n3 = (cap["bts"] == 3).sum(dim=(0, 2))
-    ok = cap["changed"].all(dim=0)
-    ok[0] = False
-    t = int(torch.where(ok, n3, -1).argmax())
-    require(bool(ok[t]) and int(n3[t]) > 0,
+    t = motion_step(cap["bts"], cap["changed"])
+    n3 = int((cap["bts"][:, t] == 3).sum())
+    require(t > 0 and bool(cap["changed"][:, t].all()) and n3 > 0,
             "a scan step with motion blocks in every stream")
     prev = torch.stack([s[t - 1] for s in src]).to(DEV)
     want_frames = torch.stack([s[t] for s in src]).to(DEV)
@@ -393,7 +340,7 @@ def phase_block_kernels(card: str, cap: dict, src) -> dict:
         cmds[2].cpu().numpy(),
         rng.integers(0, 1 << 32, cmds[3].shape, dtype=np.uint64)
         .astype(np.uint32).view(np.int32))]
-    log(f"block kernels at step {t}: {int(n3[t])} bts-3 blocks over {B} "
+    log(f"block kernels at step {t}: {n3} bts-3 blocks over {B} "
         f"streams")
     res = {}
     for name, step, ref, args, exact in (
@@ -419,15 +366,81 @@ def phase_block_kernels(card: str, cap: dict, src) -> dict:
             log(f"{name} [{B},{Y},{X}] {what}: bit-exact")
             continue
         out = torch.empty_like(prev)
-        ms = time_ms(lambda: step(prev, *args, chg, out=out))
-        plain_ms = time_ms(lambda: P.per_stream_ref(ref, prev, chg, *args))
-        log(f"{name} [{B},{Y},{X}] {what}: bit-exact; kernel {ms:.4f} "
-            f"ms/call, plain {plain_ms:.4f} ms/call ({card})")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         **bound(block_bytes(name, prev, args, chg)))
-        log(f"{name}: {res[name]['bytes']} bytes, bound "
-            f"{res[name]['bound_ms']:.4f} ms, "
-            f"{100 * res[name]['bound_ms'] / ms:.1f}% of bound")
+
+        def call():
+            step(prev, *args, chg, out=out)
+
+        res[name] = dict(max_abs_err=err, **step_report(
+            name, f"[{B},{Y},{X}] {what} step, bit-exact", card,
+            time_ms(call), graph_ms(call),
+            time_ms(lambda: P.per_stream_ref(ref, prev, chg, *args)),
+            block_bytes(name, prev, args, chg)))
+    return res
+
+
+def phase_block_scan(card: str, cap: dict, src) -> dict:
+    """Each sp_motion.cu mode on B=1 1080p steps: stream 0's capture
+    scanned from a zero frame (prev is the step before's out; an unchanged
+    step launches with changed False), every frame equal to the source
+    frame and to the plain twin's scan → {kernel: numbers per step}.
+    Beside the bound on the function's bytes, dram_bound_ms leaves out the
+    reads of prev, warm in the 50 MB L2."""
+    from jsplayer_tpu_torch.kernels import sp_motion_mxu as PM
+    from jsplayer_tpu_torch.kernels import sp_motion_pallas as PP
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    cmds = [cap[k][0] for k in ("bts", "mv", "rect", "payload")]
+    chg = cap["changed"][0]
+    mxu = [torch.stack(c) for c in zip(*(
+        PM.mxu_commands(*(c[t] for c in cmds)) for t in range(T)))]
+    frames = torch.empty((T, Y, X), dtype=torch.int32, device=DEV)
+    init = torch.zeros((1, Y, X), dtype=torch.int32, device=DEV)
+    res = {}
+    for name, step, ref, args in (
+            ("sp_compose_general", P.sp_compose_general, P.compose_frame_ref,
+             cmds),
+            ("sp_motion_patch", PP.sp_motion_patch, PP.compose_frame_fast_ref,
+             cmds),
+            ("sp_motion_mxu", PM.sp_motion_mxu, PM.compose_frame_mxu_ref,
+             mxu)):
+        def scan():
+            prev = init
+            for t in range(T):
+                step(prev, *(a[t:t + 1] for a in args), chg[t:t + 1],
+                     out=frames[t:t + 1])
+                prev = frames[t:t + 1]
+            return frames
+
+        def plain_scan():
+            prev, outs = init, []
+            for t in range(T):
+                prev = P.per_stream_ref(ref, prev, chg[t:t + 1],
+                                        *(a[t:t + 1] for a in args))
+                outs.append(prev)
+            return torch.cat(outs)
+
+        frames.fill_(0x7EADBEEF)
+        got = scan()
+        want = plain_scan()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(torch.equal(got, want),
+                f"{name} B=1 scan of stream 0 bit-exact vs plain")
+        require(torch.equal(got, src[0].to(DEV)),
+                f"{name} B=1 scan of stream 0: every frame == source frame")
+        del want
+        nbytes = [block_bytes(name, init, [a[t:t + 1] for a in args],
+                              chg[t:t + 1], dram=dram)
+                  for dram in (False, True) for t in range(T)]
+        dram = bound(sum(nbytes[T:]))["bound_ms"] / T
+        res[name] = dict(steps=T, max_abs_err=err, **step_report(
+            name, f"[1,{Y},{X}] stream 0 scan, {T} steps, bit-exact", card,
+            time_ms(scan, iters=5) / T,
+            graph_ms(scan, iters=1, replays=10) / T,
+            time_ms(plain_scan, iters=2, warmup=1) / T,
+            sum(nbytes[:T]) // T, dram_bound_ms=dram))
+        log(f"{name} B=1 scan: DRAM-only bound {dram:.4f} ms/step, "
+            f"{100 * dram / res[name]['graph_ms']:.1f}% (graph)")
     return res
 
 
@@ -617,15 +630,19 @@ def phase_experiment_kernels(card: str) -> dict:
         err = max_abs_err(got, want)
         require(torch.equal(got, want),
                 f"ds_probe {mode} [{depth},{Y},{X}] bit-exact vs plain")
-        ms = time_ms(lambda: ds_probe(f, mode))
-        plain_ms = time_ms(lambda: probe_ref(f, mode))
-        log(f"ds_probe {mode} [{depth},{Y},{X}] -> {list(got.shape)}: "
-            f"bit-exact; kernel {ms:.4f} ms/call, plain {plain_ms:.4f} "
-            f"ms/call ({card})")
+        out = torch.empty_like(got)
+
+        def call():
+            ds_probe(f, mode, out=out)
+
         nbytes = 4 * probe_read_words(mode, *f.shape) + io_bytes(got)
-        modes[mode] = dict(shape=list(got.shape), max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, **bound(nbytes))
-        del got, want
+        modes[mode] = dict(shape=list(got.shape), max_abs_err=err,
+                           **step_report(
+                               f"ds_probe {mode}", f"[{depth},{Y},{X}] -> "
+                               f"{list(got.shape)}, bit-exact", card,
+                               time_ms(call), graph_ms(call),
+                               time_ms(lambda: probe_ref(f, mode)), nbytes))
+        del got, want, out
     pack_ms = time_ms(lambda: ds2_pack(frames[64]))
     log(f"ds2_pack [64,{Y},{X}] beside ds2_fields: {pack_ms:.4f} ms/call "
         f"({card})")
@@ -633,8 +650,8 @@ def phase_experiment_kernels(card: str) -> dict:
     res["ds_probe"] = dict(max_abs_err=max(m["max_abs_err"]
                                            for m in modes.values()),
                            modes=modes, **{k: fields[k] for k in (
-                               "ms", "plain_ms", "bytes", "bound_ms",
-                               "bound_by", "library_ms")})
+                               "ms", "graph_ms", "plain_ms", "bytes",
+                               "bound_ms", "bound_by", "library_ms")})
     return res
 
 
@@ -768,7 +785,7 @@ def main() -> int:
     kernels = phase_kernels(card)
 
     t0 = time.perf_counter()
-    avis, frames, chunks = make_streams()
+    avis, frames, chunks = screen_streams()
     src = [torch.from_numpy(f.view(np.int32)) for f in frames]
     log(f"made {B} streams x {T} frames {X}x{Y} "
         f"({sum(len(a) for a in avis)} AVI bytes) in "
@@ -778,6 +795,8 @@ def main() -> int:
     launches = {}
     mxu = phase_mxu_scan(card, cap, src)
     launches["sp_motion_mxu"] = mxu["sp_motion_mxu"]
+    for name, r in phase_block_scan(card, cap, src).items():
+        kernels[name]["b1_scan"] = r
     del cap
     models = model_reference(src)
 

@@ -1,4 +1,5 @@
-"""Helpers the experiment entry points share: inputs, timing, reporting."""
+"""Helpers the experiment entry points share: inputs, timing, reporting,
+and the bytes a kernel call must move."""
 
 from __future__ import annotations
 
@@ -7,6 +8,10 @@ import subprocess
 import torch
 
 from ..device import resolve_device
+
+#: the H100 SXM's device-memory rate, bytes a millisecond (3.35 TB/s,
+#: NVIDIA's data sheet)
+HBM_BYTES_PER_MS = 3.35e9
 
 
 def card_line() -> str:
@@ -73,6 +78,45 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def io_bytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def block_bytes(name: str, prev, args, chg, dram: bool = False) -> int:
+    """Bytes one csrc/sp_motion.cu step (kernel `name`, its wrapper's
+    arguments `args` between prev and changed) must move on its commands:
+    out written, and one source word read a pixel (payload inside a data
+    block's rect, prev elsewhere; an unchanged stream reads prev); the mxu
+    mode reads its paycode word wherever a block is not motion, and prev
+    besides where that word's top byte is 0.  Plus the command arrays and
+    changed.  dram: leave out every read of prev, as in a scan, where prev
+    is the step before's out, warm in the 50 MB L2."""
+    from ..kernels.sp_recon import block_broadcast, block_grid, block_masks
+
+    Bn, Yn, Xn = prev.shape
+    nby, nbx = block_grid(Yn, Xn)
+    words = prev.numel() * (1 if dram else 2)
+    for b in range(Bn):
+        if not bool(chg[b]):
+            continue
+        if name == "sp_motion_mxu":
+            paycode, _, is_motion = args
+            still = block_broadcast(is_motion[b], nby, nbx, Yn, Xn) == 0
+            if not dram:  # prev besides paycode
+                still &= ((paycode[b] >> 24) & 0xFF) == 0
+            words += int(still.sum())
+        elif dram:  # payload words only
+            bts, _, rect = args[:3]
+            _, _, k, in_rect = block_masks(bts[b], rect[b], Yn, Xn)
+            data = (k > 0) & in_rect & (
+                ((k - 1) & 2) == 0 if name == "sp_compose_general"
+                else k != 3)
+            words += int(data.sum())
+    cmds = io_bytes(*args[1:]) if name == "sp_motion_mxu" else \
+        io_bytes(*args[:3])
+    return 4 * words + cmds + io_bytes(chg)
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:

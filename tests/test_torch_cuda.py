@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
+    rows_view
+
 pytestmark = pytest.mark.cuda
 
 
@@ -185,6 +188,24 @@ def test_block_kernel_modes(dev, mode, B, Y, X, mv_range):
     assert (got[:, 0] == 0x7EADBEEF).all() and (got[:, 2] == 0x7EADBEEF).all()
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_block_kernel_cases(dev, mode, case):
+    """Each mode of csrc/sp_motion.cu against its plain twin, bit for bit,
+    on the shapes, layouts and commands that pick each path of the kernel
+    (tests/test_torch_block_cases.py BLOCK_CASES): X % 4 != 0, odd Y and
+    X, Y % 16 != 0, offset and odd-stride views (4-byte path), a
+    frames[:, t] window view (16-byte path), rects that split vectors, bts
+    -1..7, aligned and unaligned motion, sources outside every edge,
+    unchanged streams with garbage commands, B = 1 and 5."""
+    from jsplayer_tpu_torch.kernels.sp_recon import per_stream_ref
+
+    prev, args, chg, got = run_case(case, mode, dev)
+    torch.cuda.synchronize()
+    want = per_stream_ref(case_fns(mode)[1], prev, chg, *args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("mode", ["general", "fused", "mxu"])
 def test_block_kernel_rejects_aliased_out(dev, mode):
     step, _, args = mode_inputs(mode, 2, 16, 16, 0, 4)
@@ -256,18 +277,6 @@ def test_kmv_compose_ds2_kernel(dev, B, Y, X, K):
     torch.testing.assert_close(reds[:, 1].cpu(), want_red, rtol=0, atol=0)
     for s in (0, 2):
         assert (frames[:, s] == fill).all() and (reds[:, s] == fill).all()
-
-
-def rows_view(t, offset, pad):
-    """A copy of t [B, Y, X] in a fresh buffer, as a view whose rows stay
-    contiguous but whose start lies `offset` words in and whose planes lie
-    Y*X + pad words apart (offset 1 or an odd pad: not 16-byte aligned)."""
-    B, Y, X = t.shape
-    buf = torch.full((offset + B * (Y * X + pad),), 0x5A5A5A5A,
-                     dtype=torch.int32, device=t.device)
-    v = torch.as_strided(buf, (B, Y, X), (Y * X + pad, X, 1), offset)
-    v.copy_(t)
-    return v
 
 
 # name → (B, Y, X, K, mvk rows or None for random, changed, view offset/pad)

@@ -224,7 +224,7 @@ def test_experiments_run_without_importing_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == [
-        "ok", "common", "exp_model_fusion2", "exp_pallas_bisect",
+        "ok", "block_step", "common", "exp_model_fusion2", "exp_pallas_bisect",
         "exp_pallas_ds", "exp_pallas_ds2", "kmv_step", "probes", "streams"]
 
 

@@ -13,6 +13,13 @@ their plain twins) against the JAX package, bit for bit, on the CPU:
     construction) and on random inputs whose sources reach into the
     reference's zero pad;
 
+  * every case of tests/test_torch_block_cases.py BLOCK_CASES (the table
+    the card tests hold each kernel to its twin on) whose commands the
+    reference takes: the general mode against compose_frame on all of
+    them, fused against decode_sequence_fused(interpret=True) and mxu
+    against compose_frame_mxu_safe(interpret=True) where the sources stay
+    in the frame and the shape suits the Pallas kernel;
+
 plus what the port pins where the references differ or are undefined: a
 source outside the frame reads 0, nothing outside the frame is written,
 and an unchanged stream's commands are never read."""
@@ -30,6 +37,7 @@ from jsplayer_tpu.pipeline.batch import stack_sp_commands
 from jsplayer_tpu_torch.kernels import sp_motion_mxu as PM
 from jsplayer_tpu_torch.kernels import sp_motion_pallas as PP
 from jsplayer_tpu_torch.kernels import sp_recon as P
+from test_torch_block_cases import BLOCK_CASES, MODES, run_case, spec
 
 torch.set_num_threads(1)
 
@@ -379,3 +387,52 @@ def test_significance_matches_reference_scan():
         want = [bool(changed[0, t] and (bts[0, t][insig:] > 0).any())
                 for t in range(3)]
         assert got[0].tolist() == want
+
+
+# -- the case table shared with the card tests ----------------------------
+
+def reference_takes(case, mode):
+    """Whether the JAX function of `mode` is defined on the case: the
+    general compose on every case; the Pallas kernels only where every
+    source stays in the frame (outside it the port reads 0 and they read
+    their pad, by design), the MXU kernel also only for Y % 16 == 0 and
+    X % 128 == 0 (its over-fetch window must fit the padded frame)."""
+    c = spec(case)
+    if mode == "general":
+        return True
+    if c["motion"] == "edges":
+        return False
+    return mode == "fused" or (c["Y"] % 16 == 0 and c["X"] % 128 == 0)
+
+
+def reference_step(mode, prev, args):
+    """One changed stream's step through the JAX package (numpy in and
+    out, u32)."""
+    pix = 0 if mode == "mxu" else 3  # payload / paycode: u32 planes
+    a = [u32(t) if i == pix else t.numpy() for i, t in enumerate(args)]
+    if mode == "general":
+        return np.asarray(J.compose_frame(jnp.asarray(prev), *(
+            jnp.asarray(x) for x in a)))
+    if mode == "fused":
+        bts, mv, rect, payload = (jnp.asarray(x)[None] for x in a)
+        frames, _ = JP.decode_sequence_fused(
+            jnp.asarray(prev), bts, mv, rect, payload, jnp.ones(1, bool),
+            jnp.int32(0), interpret=True)
+        return np.asarray(frames[0])
+    return np.asarray(JM.compose_frame_mxu_safe(
+        jnp.asarray(prev), *(jnp.asarray(x) for x in a), interpret=True))
+
+
+@pytest.mark.parametrize("case,mode", [
+    (c, m) for c in sorted(BLOCK_CASES) for m in MODES
+    if reference_takes(c, m)])
+def test_block_case_vs_reference(case, mode):
+    """The case through the port's wrapper on the CPU (its plain twin, in
+    the case's layout) against the JAX package stream by stream; an
+    unchanged stream keeps prev."""
+    prev, args, chg, got = run_case(case, mode, "cpu")
+    for b in range(prev.shape[0]):
+        want = u32(prev[b])
+        if chg[b]:
+            want = reference_step(mode, want, [a[b] for a in args])
+        np.testing.assert_array_equal(u32(got[b]), want, err_msg=f"{b}")
