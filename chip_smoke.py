@@ -16,11 +16,20 @@ B=1 steps.  Then it drives the port's paths on 4 SP v4 1080p streams of
   (b) the same, model tensors only;
   (c) sp_device_path="pallas" (sp_motion_patch), frames + model tensors;
   (d) sp_device_path="general" (sp_compose_general), the same;
+  (f) sp_device_path="bc" (bc_compose), still-elided, frames + model
+      tensors (CONCAT and PADDED windows);
+  (g) bc, dense, model tensors only (decode_batch_bc_model);
 
 and the MXU compose (sp_motion_mxu), which no ingest path runs, as a scan
 over one whole decoded stream.  Every frame must equal its source frame
 (the codec is lossless) and every model tensor the plain CPU epilogue, bit
-for bit.  Then phase (e), the ds2 experiments (jsplayer_tpu_torch.
+for bit.  bc_compose is held against its twin on random B=4 1080p inputs
+(wrapping vectors, codes past the motion slots, an unchanged stream, plane
+words outside the data rects that differ between two calls, which must
+agree), on the native bc transport's B=4 step with the most motion, and
+over stream 0's B=1 steps.  The validate phase runs jsplayer_tpu_torch.
+validate's five parity legs on the card.  Then phase (e), the ds2
+experiments (jsplayer_tpu_torch.
 experiments): kmv_compose_ds2 (csrc/kmv_compose.cu's fused compose+ds2
 instance) on random inputs and every mode of csrc/ds_probe.cu at its
 script's full shape, each against its plain twin; then the experiments'
@@ -36,6 +45,8 @@ calls replayed as a CUDA graph (device time without the host's launch
 cost).  Every time stands beside its bound: the bytes the function must
 move on this run's data over 3.35 TB/s; the B=1 scans add a DRAM-only
 bound without the reads of prev, the step before's out, warm in L2.
+ds_probe's block_transpose mode also gives torch's own transpose copy
+(`library_ms`) on a [4, 1024, 1920] input, beside the kernel's time there.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
 anything; without the repository around it the first import fails.  The
@@ -57,10 +68,15 @@ import time
 import numpy as np
 import torch
 
+from jsplayer_tpu_torch.experiments.bc_step import motion_step as \
+    bc_motion_step
+from jsplayer_tpu_torch.experiments.bc_step import (step_inputs,
+                                                    transport_args)
 from jsplayer_tpu_torch.experiments.block_step import (B, T, X, Y,
                                                        motion_step,
                                                        screen_streams)
 from jsplayer_tpu_torch.experiments.common import (HBM_BYTES_PER_MS,
+                                                   bc_bytes, bc_data_pixels,
                                                    block_bytes, card_line,
                                                    graph_ms, io_bytes,
                                                    rand_frames, time_ms)
@@ -268,7 +284,7 @@ def kernel_counters() -> dict:
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
     from jsplayer_tpu_torch.kernels.sp_motion_mxu import sp_motion_mxu
     from jsplayer_tpu_torch.kernels.sp_motion_pallas import sp_motion_patch
-    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose,
+    from jsplayer_tpu_torch.kernels.sp_recon import (bc_compose, kmv_compose,
                                                      kmv_compose_ds2,
                                                      sp_compose_general)
 
@@ -276,7 +292,8 @@ def kernel_counters() -> dict:
             "sp_compose_general": sp_compose_general,
             "sp_motion_patch": sp_motion_patch,
             "sp_motion_mxu": sp_motion_mxu,
-            "kmv_compose_ds2": kmv_compose_ds2, "ds_probe": ds_probe}
+            "kmv_compose_ds2": kmv_compose_ds2, "ds_probe": ds_probe,
+            "bc_compose": bc_compose}
 
 
 def count_launches(fn):
@@ -293,6 +310,15 @@ def count_launches(fn):
     got = {name: w.launches for name, w in counters.items()}
     got["ds_probe_modes"] = dict(ds_probe.by_mode)
     return res, got
+
+
+def require_only(launches, kernels, what):
+    """Each of `kernels` launched in a run and no other compose did."""
+    require(all(launches[k] > 0 for k in kernels),
+            f"{what} launched {kernels} ({launches})")
+    require(sum(v for k, v in launches.items()
+                if k not in (*kernels, "ds_probe_modes")) == 0,
+            f"{what} launched no other kernel ({launches})")
 
 
 def capture(chunks):
@@ -541,11 +567,7 @@ def phase_block_run(card: str, name: str, path: str, kernel: str, avis,
         f"{dt:.3f} s = {B * T / dt:.1f} delivered frames/s, peak device "
         f"memory {peak:.2f} GiB with every window kept ({card}); launches "
         f"{launches}")
-    require(launches[kernel] > 0 and launches["ds2_pack"] > 0,
-            f"run ({name}) launched {kernel} and ds2_pack ({launches})")
-    require(sum(v for k, v in launches.items()
-                if k not in (kernel, "ds2_pack", "ds_probe_modes")) == 0,
-            f"run ({name}) launched no other compose ({launches})")
+    require_only(launches, (kernel, "ds2_pack"), f"run ({name})")
     for w in batches:
         t0, n = w["start_frame"], w["frames_u32"].shape[1]
         require(n == min(WINDOW, T - t0), f"run ({name}) window @{t0} "
@@ -561,6 +583,204 @@ def phase_block_run(card: str, name: str, path: str, kernel: str, avis,
             f"run ({name}) covers {T} frames")
     log(f"run ({name}): every stream's frames and model tensors bit-exact")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The bc transport: bc_compose, runs (f) and (g)
+
+def outside_data_flipped(plane, bcode, rloc):
+    """plane with every word outside the code-1 rects inverted."""
+    Bn, Yn, Xn = plane.shape
+    keep = torch.stack([bc_data_pixels(bcode[b], rloc[b], Yn, Xn)
+                        for b in range(Bn)])
+    return torch.where(keep, plane, ~plane)
+
+
+def phase_bc_kernel(card: str) -> dict:
+    """bc_compose against its twin on random B=4 1080p inputs, bit for bit;
+    the plane's words outside the data rects are random, and a second call
+    with them inverted must give the same frames."""
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose, bc_compose_ref
+
+    prev, args, chg = step_inputs(DEV)
+    got = bc_compose(prev, *args, chg)
+    want = bc_compose_ref(prev, *args, chg)
+    flipped = bc_compose(prev, outside_data_flipped(*args[:3]), *args[1:],
+                         chg)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(torch.equal(got, want), "bc_compose bit-exact vs plain")
+    require(torch.equal(flipped, got), "bc_compose reads no plane word "
+            "outside a code-1 rect")
+    out = torch.empty_like(prev)
+
+    def step():
+        bc_compose(prev, *args, chg, out=out)
+
+    return dict(max_abs_err=err, **step_report(
+        "bc_compose", f"[{B},{Y},{X}] K=2 random step, bit-exact", card,
+        time_ms(step), graph_ms(step),
+        time_ms(lambda: bc_compose_ref(prev, *args, chg)),
+        bc_bytes(prev, args, chg)))
+
+
+def bc_capture(chunks) -> dict:
+    """The native decoder's bc transport of the streams (numpy, on the
+    host): plane [B,T,Y,X] u32 (only data-rect words defined), bcode, rloc,
+    mvk, changed."""
+    from jsplayer_tpu_torch import native
+
+    t0 = time.perf_counter()
+    got = native.native_sp_decode_streams_bc(chunks, X, Y, K=2)
+    require(not got["errors"], f"native bc decode ({got['errors']} errors)")
+    log(f"native bc transport of {len(chunks)} x {len(chunks[0])} frames: "
+        f"{time.perf_counter() - t0:.3f} s")
+    return got
+
+
+def phase_bc_step(card: str, bc: dict, src) -> dict:
+    """bc_compose on the native transport's B=4 step with the most motion
+    blocks (every stream changed), against its twin and the source
+    frames."""
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose, bc_compose_ref
+
+    t = bc_motion_step(bc)
+    require(t > 0 and bool(bc["changed"][:, t].all()),
+            "a bc step with every stream changed")
+    prev = torch.stack([s[t - 1] for s in src]).to(DEV)
+    args = transport_args(bc, slice(None), t, DEV)
+    chg = torch.ones(B, dtype=torch.bool, device=DEV)
+    got = bc_compose(prev, *args, chg)
+    want = bc_compose_ref(prev, *args, chg)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "bc_compose captured step bit-exact vs "
+            "plain")
+    require(torch.equal(got, torch.stack([s[t] for s in src]).to(DEV)),
+            "bc_compose captured step composes the source frames")
+    out = torch.empty_like(prev)
+
+    def step():
+        bc_compose(prev, *args, chg, out=out)
+
+    n = int((bc["bcode"][:, t] >= 2).sum())
+    return dict(step=t, **step_report(
+        "bc_compose", f"[{B},{Y},{X}] captured step {t} ({n} motion "
+        f"blocks), bit-exact", card, time_ms(step), graph_ms(step),
+        time_ms(lambda: bc_compose_ref(prev, *args, chg)),
+        bc_bytes(prev, args, chg)))
+
+
+def phase_bc_scan(card: str, bc: dict, src) -> dict:
+    """bc_compose over stream 0's B=1 1080p steps of the native bc
+    transport, scanned from a zero frame (an unchanged step launches with
+    changed False): every frame equal to the source frame and to the plain
+    twin's scan → numbers per step, with the DRAM-only bound beside the
+    full one (prev, the step before's out, warm in the 50 MB L2)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose, bc_compose_ref
+
+    args = transport_args(bc, 0, slice(None), DEV)
+    chg = torch.from_numpy(bc["changed"][0]).to(DEV)
+    frames = torch.empty((T, Y, X), dtype=torch.int32, device=DEV)
+    init = torch.zeros((1, Y, X), dtype=torch.int32, device=DEV)
+
+    def scan():
+        prev = init
+        for t in range(T):
+            bc_compose(prev, *(a[t:t + 1] for a in args), chg[t:t + 1],
+                       out=frames[t:t + 1])
+            prev = frames[t:t + 1]
+        return frames
+
+    def plain_scan():
+        prev, outs = init, []
+        for t in range(T):
+            prev = bc_compose_ref(prev, *(a[t:t + 1] for a in args),
+                                  chg[t:t + 1])
+            outs.append(prev)
+        return torch.cat(outs)
+
+    frames.fill_(0x7EADBEEF)
+    got = scan()
+    want = plain_scan()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(torch.equal(got, want), "bc_compose B=1 scan of stream 0 "
+            "bit-exact vs plain")
+    require(torch.equal(got, src[0].to(DEV)), "bc_compose B=1 scan of "
+            "stream 0: every frame == source frame")
+    del want
+    nbytes = [bc_bytes(init, [a[t:t + 1] for a in args], chg[t:t + 1],
+                       dram=dram) for dram in (False, True) for t in range(T)]
+    dram = bound(sum(nbytes[T:]))["bound_ms"] / T
+    res = dict(steps=T, max_abs_err=err, **step_report(
+        "bc_compose", f"[1,{Y},{X}] stream 0 scan, {T} steps, bit-exact",
+        card, time_ms(scan, iters=5) / T,
+        graph_ms(scan, iters=1, replays=10) / T,
+        time_ms(plain_scan, iters=2, warmup=1) / T,
+        sum(nbytes[:T]) // T, dram_bound_ms=dram))
+    log(f"bc_compose B=1 scan: DRAM-only bound {dram:.4f} ms/step, "
+        f"{100 * dram / res['graph_ms']:.1f}% (graph)")
+    return res
+
+
+def phase_bc_runs(card: str, avis, src, models) -> dict:
+    """Runs (f) and (g): sp_device_path "bc", (f) still-elided with frames
+    and ds2 model tensors (CONCAT and PADDED windows), (g) dense and model
+    tensors only; every frame equal to its source frame and every model
+    tensor to the plain epilogue."""
+    (bf, stats, dt), launches_f = count_launches(
+        lambda: run_ingest(avis, sp_device_path="bc"))
+    log(f"run (f) bc: {stats}; {B * T} timeline frames in {dt:.3f} s = "
+        f"{B * T / dt:.1f} delivered frames/s ({card}); launches "
+        f"{launches_f}")
+    require(stats["concat_windows"] > 0 and stats["padded_windows"] > 0,
+            f"run (f) ran both elision layouts ({stats})")
+    require_only(launches_f, ("bc_compose", "ds2_pack"), "run (f)")
+    for b in range(B):
+        rows = timeline_rows(bf, b)
+        require(torch.equal(gather(bf, rows, "frames_u32"), src[b].to(DEV)),
+                f"run (f) stream {b} frames == source frames")
+        check_model(gather(bf, rows, "model_input"), models[b],
+                    f"run (f) stream {b}")
+    log("run (f): every stream's frames and model tensors bit-exact")
+    del bf
+
+    (bg, _, dt), launches_g = count_launches(
+        lambda: run_ingest(avis, still_elision=False, sp_device_path="bc",
+                           emit_frames=False))
+    log(f"run (g) bc model-only: {len(bg)} windows, {B * T} frames in "
+        f"{dt:.3f} s = {B * T / dt:.1f} delivered frames/s ({card}); "
+        f"launches {launches_g}")
+    require_only(launches_g, ("bc_compose", "ds2_pack"), "run (g)")
+    require(all("frames_u32" not in w for w in bg), "run (g) emits no frame "
+            "stack")
+    for w in bg:
+        t0, n = w["start_frame"], w["model_input"].shape[1]
+        for b in range(B):
+            check_model(w["model_input"][b], models[b][t0:t0 + n],
+                        f"run (g) stream {b} window @{t0}")
+    require(sum(w["model_input"].shape[1] for w in bg) == T,
+            f"run (g) covers {T} frames")
+    log("run (g): every stream's model tensors bit-exact")
+    return {k: launches_f[k] + launches_g[k] for k in ("bc_compose",
+                                                       "ds2_pack")}
+
+
+def phase_validate(card: str) -> dict:
+    """jsplayer_tpu_torch.validate's five parity legs on the card, each
+    true, each through its kernel."""
+    from jsplayer_tpu_torch import validate
+
+    t0 = time.perf_counter()
+    res, launches = count_launches(lambda: validate.run(str(DEV)))
+    log(f"validate legs: {json.dumps(res)} in {time.perf_counter() - t0:.3f}"
+        f" s ({card}); launches {launches}")
+    require(set(res) == set(validate.LEGS) and all(res.values()),
+            f"every validate leg true ({res})")
+    for k in ("sp_compose_general", "sp_motion_patch", "sp_motion_mxu",
+              "kmv_compose", "bc_compose"):
+        require(launches[k] > 0, f"the validate legs launched {k}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +863,7 @@ def phase_experiment_kernels(card: str) -> dict:
                                time_ms(call), graph_ms(call),
                                time_ms(lambda: probe_ref(f, mode)), nbytes))
         del got, want, out
+    modes["block_transpose"].update(phase_transpose_yardstick(card))
     pack_ms = time_ms(lambda: ds2_pack(frames[64]))
     log(f"ds2_pack [64,{Y},{X}] beside ds2_fields: {pack_ms:.4f} ms/call "
         f"({card})")
@@ -653,6 +874,42 @@ def phase_experiment_kernels(card: str) -> dict:
                                "ms", "graph_ms", "plain_ms", "bytes",
                                "bound_ms", "bound_by", "library_ms")})
     return res
+
+
+def phase_transpose_yardstick(card: str) -> dict:
+    """block_transpose beside torch's own transpose copy on [4, 1024, 1920]
+    (Y a multiple of BH, so one PyTorch call computes the function),
+    both bit-exact against the twin → {"library_ms", "library_graph_ms",
+    "library_shape", "y1024": the kernel's numbers there}."""
+    from jsplayer_tpu_torch.experiments.probe_step import (
+        torch_block_transpose)
+    from jsplayer_tpu_torch.experiments.probes import probe_ref
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+
+    f = rand_dev((4, 1024, X), 1024)
+    want = probe_ref(f, "block_transpose")
+    got = ds_probe(f, "block_transpose")
+    lib = torch_block_transpose(f)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and torch.equal(lib, want),
+            "block_transpose and torch's transpose copy bit-exact on "
+            "[4,1024,1920]")
+    out = torch.empty_like(want)
+
+    def call():
+        ds_probe(f, "block_transpose", out=out)
+
+    lib_ms = time_ms(lambda: torch_block_transpose(f))
+    lib_graph = graph_ms(lambda: torch_block_transpose(f))
+    res = step_report("ds_probe block_transpose", f"[4,1024,{X}], "
+                      f"bit-exact", card, time_ms(call), graph_ms(call),
+                      time_ms(lambda: probe_ref(f, "block_transpose")),
+                      io_bytes(f, want))
+    log(f"torch transpose copy [4,1024,{X}]: {lib_ms:.4f} ms/call, "
+        f"{lib_graph:.4f} as a CUDA graph, "
+        f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph) ({card})")
+    return dict(library_ms=lib_ms, library_graph_ms=lib_graph,
+                library_shape=[4, 1024, X], y1024=res)
 
 
 def load_bench_mix():
@@ -783,6 +1040,7 @@ def main() -> int:
     card = phase_env()
     phase_build()
     kernels = phase_kernels(card)
+    kernels["bc_compose"] = phase_bc_kernel(card)
 
     t0 = time.perf_counter()
     avis, frames, chunks = screen_streams()
@@ -806,7 +1064,14 @@ def main() -> int:
                                ("d", "general", "sp_compose_general")):
         got = phase_block_run(card, name, path, kernel, avis, src, models)
         launches[kernel] = got[kernel]
+    bc = bc_capture(chunks)
+    kernels["bc_compose"]["captured"] = phase_bc_step(card, bc, src)
+    kernels["bc_compose"]["b1_scan"] = phase_bc_scan(card, bc, src)
+    del bc
+    launches["bc_compose"] = phase_bc_runs(card, avis, src,
+                                           models)["bc_compose"]
     del avis, frames, chunks, src, models
+    phase_validate(card)
 
     kernels.update(phase_experiment_kernels(card))
     stream = load_bench_mix()
@@ -836,7 +1101,9 @@ def main() -> int:
         "ds_probe": ("jsplayer_tpu_torch/csrc/ds_probe.cu",
                      "scripts/exp_pallas_ds.py:37; "
                      "scripts/exp_pallas_ds2.py:31,35,41; "
-                     "scripts/exp_pallas_bisect.py:19-65")}
+                     "scripts/exp_pallas_bisect.py:19-65"),
+        "bc_compose": ("jsplayer_tpu_torch/csrc/bc_compose.cu",
+                       "jsplayer_tpu/kernels/sp_recon.py:323")}
     ref = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jsplayer_tpu", "jax"))
     require(not ref, f"the run imported nothing of jax or jsplayer_tpu "

@@ -12,8 +12,8 @@ torch twins that run on the CPU.
 
 Public surface:
   VideoIngestPipeline / IngestConfig — batched AVI → model-tensor windows
-                                       (ScreenPressor kmv, general and
-                                       pallas paths)
+                                       (ScreenPressor kmv, bc, general
+                                       and pallas paths)
   open_source / MemorySource         — byte-range sources
 """
 

@@ -64,8 +64,8 @@ def main(argv=None) -> int:
     a.add_argument("--path", default="kmv",
                    choices=("kmv", "bc", "kmv_sparse", "lane", "general",
                             "pallas"),
-                   help="SP device compose (kmv, general and pallas are "
-                        "ported; the others raise NotImplementedError)")
+                   help="SP device compose (kmv, bc, general and pallas "
+                        "are ported; the others raise NotImplementedError)")
     a.add_argument("--downscale", type=int, default=1,
                    help="power-of-two box downsample in the model epilogue")
     a.add_argument("--model-only", action="store_true",

@@ -115,6 +115,8 @@ def load() -> ctypes.CDLL:
         lib.jsp_kmv_compose_ds2.restype = i32
         lib.jsp_kmv_compose_ds2.argtypes = [p, i64] * 6 + [i32, i32, i32, i32,
                                                             p]
+        lib.jsp_bc_compose.restype = i32
+        lib.jsp_bc_compose.argtypes = [p, i64] * 7 + [i32, i32, i32, i32, p]
         lib.jsp_ds2_pack.restype = i32
         lib.jsp_ds2_pack.argtypes = [p, i64, p, i64, i32, i32, i32, i32, p]
         lib.jsp_ds_probe.restype = i32

@@ -22,10 +22,15 @@
 // u16 bitcasts, transposes); on Hopper any address can be read, so every
 // mode but block_transpose is one thread an output word, reading its
 // inputs straight from device memory (neighbouring threads on neighbouring
-// columns, so a warp's loads coalesce).  block_transpose stages a 32x32
-// tile through shared memory (padded to 33 columns against bank conflicts)
-// so that both the reads and the writes coalesce.  4-byte accesses; wider
-// ones are later work.
+// columns, so a warp's loads coalesce), with 4-byte accesses.
+// block_transpose moves 32 x 128-word tiles through shared memory with
+// 16-byte loads along x and 16-byte stores along r, transposing 4 x 4
+// sub-blocks in registers and swizzling the tile's 16-byte units so that
+// neither side has bank conflicts (see block_transpose_kernel); odd
+// shapes and unaligned views take the same indexing with 4-byte accesses.
+// Its bound at [4, 1080, 1920], BH = 128: 33.2 MB read, 35.4 MB written
+// (the zero rows of the partial last block are written, not read), 0.0205
+// ms at 3.35 TB/s.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -93,35 +98,86 @@ __global__ void ds_probe_kernel(const uint32_t* __restrict__ in,
   }
 }
 
-constexpr int kTile = 32;
-constexpr int kTileRows = 8;  // threads per tile column; each moves 4 words
+// block_transpose: out[c, blk*X + x, r] = frame[c, blk*BH + r, x].  A thread
+// block moves a tile of kTr r-values (source rows) x kTw x-values (source
+// columns) of one BH-row block: 32 x 128 words, 16 KB each way, 256 threads.
+constexpr int kTr = 32;
+constexpr int kTw = 128;
+constexpr int kTpThreads = 256;
+constexpr int kUnits = kTr / 4;  // 16-byte units of r a tile row holds
 
-// out[c, blk*X + x, r] = frame[c, blk*BH + r, x]; one thread block a 32x32
-// tile of one BH-row block.
-__global__ void block_transpose_kernel(const uint32_t* __restrict__ in,
-                                       long long in_cs,
-                                       uint32_t* __restrict__ out,
-                                       long long out_cs, int C, int Y, int X,
-                                       int BH) {
-  __shared__ uint32_t tile[kTile][kTile + 1];
-  const int tiles_per_blk = (BH + kTile - 1) / kTile;
-  const int blk = blockIdx.y / tiles_per_blk;
-  const int r0 = (blockIdx.y - blk * tiles_per_blk) * kTile;
-  const int x0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+// The shared tile holds the output's order, [x][r], as 16-byte units of 4
+// r-values, with unit u of row x stored at u ^ ((x >> 2) & 7).  Both
+// phases then touch 8 distinct 16-byte bank groups in each quarter warp:
+// the loads' writes (one r-unit, x = 4 * (lane & 7) + q) and the stores'
+// reads (one x, u = 0..7).
+__device__ __forceinline__ int tp_slot(int x, int u) {
+  return x * kUnits + (u ^ ((x >> 2) & 7));
+}
+
+// Phase 1: each thread loads a 4 x 4 sub-block (4 source rows of 4
+// columns: 16-byte loads along x on the kVec path), transposes it in
+// registers and writes 4 units.  A warp's lanes cover 8 consecutive
+// column quads (a 128-byte row segment) of 4 row quads.  Rows past Y are
+// zero and are never read.  Phase 2: each thread stores 4 units of the
+// output, 16-byte stores along r, a warp 4 rows of 128 contiguous bytes.
+template <bool kVec>
+__global__ void __launch_bounds__(kTpThreads) block_transpose_kernel(
+    const uint32_t* __restrict__ in, long long in_cs,
+    uint32_t* __restrict__ out, long long out_cs, int C, int Y, int X,
+    int BH) {
+  __shared__ uint4 tile[kTw * kUnits];
+  const int rtiles = (BH + kTr - 1) / kTr;
+  const int blk = blockIdx.y / rtiles;
+  const int r0 = (blockIdx.y - blk * rtiles) * kTr;
+  const int x0 = blockIdx.x * kTw;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int xq = (warp & 3) * 8 + (lane & 7);  // column quad of the tile
+  const int rq = (warp >> 2) * 4 + (lane >> 3);  // row quad of the tile
+  const int xs = x0 + 4 * xq;
   for (int c = blockIdx.z; c < C; c += gridDim.z) {
-    const Frame f{in + c * in_cs, Y, X};
-    for (int k = ty; k < kTile; k += kTileRows) {
-      const int r = r0 + k, x = x0 + tx;
-      tile[k][tx] = (r < BH && x < X) ? f.at(blk * BH + r, x) : 0u;
+    const uint32_t* f = in + c * in_cs;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 4 * rq + i;
+      const int y = blk * BH + r;
+      const long long row = (long long)y * X;
+      if (r < BH && y < Y && (!kVec || xs < X)) {
+        if (kVec) {
+          const uint4 v = __ldcs((const uint4*)(f + row + xs));
+          a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[i][q] = xs + q < X ? f[row + xs + q] : 0u;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[i][q] = 0u;
+      }
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      tile[tp_slot(4 * xq + q, rq)] =
+          make_uint4(a[0][q], a[1][q], a[2][q], a[3][q]);
     __syncthreads();
     uint32_t* o = out + c * out_cs;
-    for (int k = ty; k < kTile; k += kTileRows) {
-      const int x = x0 + k, r = r0 + tx;
-      if (x < X && r < BH) o[((long long)blk * X + x) * BH + r] = tile[tx][k];
+#pragma unroll
+    for (int k = 0; k < kTw * kUnits / kTpThreads; ++k) {
+      const int g = k * kTpThreads + threadIdx.x;
+      const int x = g / kUnits, u = g % kUnits;
+      const int xo = x0 + x, r = r0 + 4 * u;
+      if (xo >= X || r >= BH) continue;  // BH % 4 == 0: r + 3 < BH
+      const uint4 v = tile[tp_slot(x, u)];
+      uint32_t* dst = o + ((long long)blk * X + xo) * BH + r;
+      if (kVec) {
+        *(uint4*)dst = v;
+      } else {
+        dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+      }
     }
-    __syncthreads();
+    if (c + (int)gridDim.z < C) __syncthreads();  // the tile is reused
   }
 }
 
@@ -146,12 +202,15 @@ extern "C" int jsp_ds_probe(int mode, const void* in, long long in_cs,
   uint32_t* dst = (uint32_t*)out;
   const unsigned cz = C < 65535 ? C : 65535;
   if (mode == kBlockTranspose) {
-    const int tiles_per_blk = (BH + kTile - 1) / kTile;
+    if (BH % 4) return (int)cudaErrorInvalidValue;
     const int nblk = (Y + BH - 1) / BH;
-    const dim3 block(kTile, kTileRows);
-    const dim3 grid((X + kTile - 1) / kTile, nblk * tiles_per_blk, cz);
-    block_transpose_kernel<<<grid, block, 0, s>>>(src, in_cs, dst, out_cs, C,
-                                                  Y, X, BH);
+    const dim3 grid((X + kTw - 1) / kTw, nblk * ((BH + kTr - 1) / kTr), cz);
+    const bool vec = X % 4 == 0 && (uintptr_t)src % 16 == 0 &&
+                     (uintptr_t)dst % 16 == 0 && in_cs % 4 == 0 &&
+                     out_cs % 4 == 0;
+    auto kernel = vec ? block_transpose_kernel<true>
+                      : block_transpose_kernel<false>;
+    kernel<<<grid, kTpThreads, 0, s>>>(src, in_cs, dst, out_cs, C, Y, X, BH);
     return (int)cudaGetLastError();
   }
   const dim3 block(32, 8);

@@ -119,6 +119,38 @@ def block_bytes(name: str, prev, args, chg, dram: bool = False) -> int:
     return 4 * words + cmds + io_bytes(chg)
 
 
+def bc_data_pixels(bcode, rloc, Y: int, X: int) -> torch.Tensor:
+    """bool [Y, X]: the pixels inside a code-1 rect of one frame's bcode
+    [NB] and rloc [NB, 4] (the only plane words csrc/bc_compose.cu
+    reads)."""
+    from ..kernels.sp_recon import bc_row_map, block_grid, row_expand
+
+    rowv = row_expand(bc_row_map(bcode, rloc, *block_grid(Y, X), X), Y, X)
+    ly = torch.arange(Y, device=rowv.device)[:, None] & 15
+    return ((rowv & 0xFF) == 1) & (ly >= ((rowv >> 8) & 0xFF)) & (
+        ly < ((rowv >> 16) & 0xFF))
+
+
+def bc_bytes(prev, args, chg, dram: bool = False) -> int:
+    """Bytes one csrc/bc_compose.cu step (args: plane, bcode, rloc, mvk)
+    must move: out written and one source word read a pixel (the plane
+    inside a code-1 rect, prev elsewhere, moved or in place; an unchanged
+    stream reads prev), plus the command arrays of the changed streams and
+    changed.  dram: leave out every read of prev, as in a scan, where prev
+    is the step before's out, warm in the 50 MB L2."""
+    plane, bcode, rloc, mvk = args
+    Bn, Yn, Xn = prev.shape
+    words = prev.numel() * (1 if dram else 2)
+    cmds = 0
+    for b in range(Bn):
+        if not bool(chg[b]):
+            continue
+        cmds += io_bytes(bcode[b], rloc[b], mvk[b])
+        if dram:
+            words += int(bc_data_pixels(bcode[b], rloc[b], Yn, Xn).sum())
+    return 4 * words + cmds + io_bytes(chg)
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal dtype, shape and bits (bf16 through int16 views)."""
     if a.dtype != b.dtype or a.shape != b.shape:

@@ -19,6 +19,11 @@ inside the kernel.  ``kmv_compose_ds2`` is the same step fused with the
 packed ds2 plane of its output (the in-scan ds2 experiment,
 experiments/exp_model_fusion2.py); the ingest scan does not use it.
 
+The bc transport has the same pixel rule with the block structure in two
+small per-block arrays (bcode, rloc) and a plane that holds only data-rect
+pixels: ``bc_compose`` is its step (csrc/bc_compose.cu, twin
+``bc_compose_ref``).
+
 The general block-command compose (``compose_frame``, the per-pixel
 gather of the reference's ``decode_sequence``/``decode_batch``) is mode
 "general" of csrc/sp_motion.cu behind ``sp_compose_general``; the same
@@ -31,6 +36,8 @@ copy against the original.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -98,17 +105,19 @@ def _planes_overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return any(x < y + n and y < x + n for x in sa for y in sb)
 
 
-def _kmv_launch_args(what, prev, paycode, mvk, changed, out) -> list:
-    """The CUDA branch's checks shared by kmv_compose and kmv_compose_ds2
-    → the (pointer, batch stride) arguments prev, paycode, mvk, changed,
-    out of their entry points."""
+def _kmv_launch_args(what, prev, paycode, mvk, changed, out,
+                     pix_name="paycode") -> list:
+    """The CUDA branch's checks shared by kmv_compose, kmv_compose_ds2 and
+    bc_compose (whose pixel plane, `pix_name`, is the bc plane) → the
+    (pointer, batch stride) arguments prev, paycode, mvk, changed, out of
+    their entry points."""
     cuda_launch_checks(what, prev, paycode, mvk, out)
     if changed.device != prev.device or changed.dtype != torch.bool:
         raise TypeError(f"{what}: changed must be a bool tensor on the "
                         f"frames' device")
     B, Y, X = prev.shape
     K = mvk.shape[-2]
-    for name, t in (("prev", prev), ("paycode", paycode), ("out", out)):
+    for name, t in (("prev", prev), (pix_name, paycode), ("out", out)):
         if t.shape != (B, Y, X) or t.stride(-1) != 1 or t.stride(-2) != X:
             raise ValueError(f"{what}: {name} must be row-contiguous "
                              f"[{B}, {Y}, {X}], got {tuple(t.shape)} "
@@ -287,11 +296,12 @@ def _model_emit(model_kw):
     return (lambda out: to_model_input(out, **kw)), (lambda m: m)
 
 
-def _scan_model(init_frames, paycode, mvk, changed, model_kw):
-    """The model-only scan: frames live in two ping-pong buffers (the
+def _scan_model(step, init_frames, per_step, changed, model_kw):
+    """The model-only scan of a step (kmv_compose or bc_compose) over
+    per_step [B,T,...] inputs: frames live in two ping-pong buffers (the
     full-res stack is never written); each step's emit is kept."""
     emit, finish = _model_emit(model_kw)
-    B, T = paycode.shape[:2]
+    B, T = changed.shape
     if T == 0:
         raise ValueError("model scan over zero frames")
     bufs = (torch.empty_like(init_frames, memory_format=torch.contiguous_format),
@@ -299,7 +309,7 @@ def _scan_model(init_frames, paycode, mvk, changed, model_kw):
     prev, ys = init_frames, []
     for t in range(T):
         out = bufs[t % 2]
-        kmv_compose(prev, paycode[:, t], mvk[:, t], changed[:, t], out=out)
+        step(prev, *(a[:, t] for a in per_step), changed[:, t], out=out)
         ys.append(emit(out))
         prev = out
     return prev, finish(torch.stack(ys, dim=1))
@@ -312,7 +322,7 @@ def decode_batch_kmv_model(init_frames, paycode, mvk, changed,
     → (carry [B,Y,X] for the next window, model [B,T,...])."""
     kw = dict(dtype=dtype, layout=layout, downscale=downscale, bpp16=bpp16,
               packed=packed)
-    return _scan_model(init_frames, paycode, mvk, changed, kw)
+    return _scan_model(kmv_compose, init_frames, (paycode, mvk), changed, kw)
 
 
 def decode_sequence_kmv_compact_model(init_frame, paycode, mvk,
@@ -325,9 +335,159 @@ def decode_sequence_kmv_compact_model(init_frame, paycode, mvk,
               packed=packed)
     chg = torch.ones((1, paycode.shape[0]), dtype=torch.bool,
                      device=paycode.device)
-    carry, model = _scan_model(init_frame[None], paycode[None], mvk[None],
-                               chg, kw)
+    carry, model = _scan_model(kmv_compose, init_frame[None],
+                               (paycode[None], mvk[None]), chg, kw)
     return carry[0], model[0]
+
+
+# ---------------------------------------------------------------------------
+# The bc transport (csrc/bc_compose.cu)
+#
+# bcode [NB] u8 (0 copy / 1 data / 2+k motion slot k) and block-local rects
+# rloc [NB, 4] u8 (x0, y0, x1, y1) carry the block structure; the u32 plane
+# holds only the data-rect pixels, and its other bytes are never read.
+# ---------------------------------------------------------------------------
+
+def bc_row_map(bcode, rect, nby: int, nbx: int, X: int) -> torch.Tensor:
+    """Per-block commands → the reference's packed [nby, X] row map
+    ``btype | y1<<8 | y2<<16`` per column; columns outside a block's
+    x-rect read 0 (copy)."""
+    bt = bcode.reshape(nby, nbx).to(torch.int32)
+    r = rect.reshape(nby, nbx, 4).to(torch.int32)
+    lx = torch.arange(16, dtype=torch.int32, device=bcode.device)
+    act = (lx >= r[..., 0, None]) & (lx < r[..., 2, None])
+    packed = torch.where(
+        act, bt[..., None] | (r[..., 1, None] << 8) | (r[..., 3, None] << 16),
+        0)
+    return packed.reshape(nby, nbx * 16)[:, :X]
+
+
+def row_expand(rows: torch.Tensor, Y: int, X: int) -> torch.Tensor:
+    """[nby, X] → [Y, X]: each row repeated 16 times."""
+    nby = rows.shape[0]
+    return rows[:, None, :].expand(nby, 16, X).reshape(nby * 16, X)[:Y]
+
+
+def _neg32(v: int) -> int:
+    """-v in int32 arithmetic, as the reference negates a vector before its
+    roll: -(-2**31) wraps to -2**31."""
+    return v if v == -2**31 else -v
+
+
+def compose_frame_bc_ref(prev, plane, bcode, rect, mvk) -> torch.Tensor:
+    """Plain twin of the reference's compose_frame_bc: prev/plane [Y, X]
+    int32 bit views, bcode [NB] u8, rect [NB, 4] u8 block-local, mvk
+    [K, 2] (mx, my) → [Y, X].  Its ops one for one: the row map, its row
+    expansion, then code 1 inside the rect takes plane & 0xFFFFFF, code 2+k
+    (k < K) inside the rect takes prev rolled by mvk[k] (wrapping), the
+    rest keeps prev."""
+    Y, X = prev.shape
+    nby, nbx = block_grid(Y, X)
+    rowv = row_expand(bc_row_map(bcode, rect, nby, nbx, X), Y, X)
+    bt = rowv & 0xFF
+    y1 = (rowv >> 8) & 0xFF
+    y2 = (rowv >> 16) & 0xFF
+    ly = torch.arange(Y, dtype=torch.int32, device=prev.device)[:, None] & 15
+    in_y = (ly >= y1) & (ly < y2)
+    out = torch.where((bt == 1) & in_y, plane & 0x00FFFFFF, prev)
+    for k, (mx, my) in enumerate(mvk.tolist()):
+        shifted = torch.roll(prev, shifts=(_neg32(my), _neg32(mx)),
+                             dims=(0, 1))
+        out = torch.where((bt == 2 + k) & in_y, shifted, out)
+    return out
+
+
+def bc_compose_ref(prev, plane, bcode, rloc, mvk, changed) -> torch.Tensor:
+    """Plain twin of the batched bc step: prev/plane [B, Y, X], bcode
+    [B, NB], rloc [B, NB, 4], mvk [B, K, 2], changed [B] → [B, Y, X]
+    (unchanged streams copy prev)."""
+    return per_stream_ref(compose_frame_bc_ref, prev, changed, plane, bcode,
+                          rloc, mvk)
+
+
+def bc_compose(prev: torch.Tensor, plane: torch.Tensor, bcode: torch.Tensor,
+               rloc: torch.Tensor, mvk: torch.Tensor, changed: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """One bc scan step for every stream of a batch: prev/plane [B, Y, X]
+    int32 bit views, bcode [B, NB] u8, rloc [B, NB, 4] u8, mvk [B, K, 2]
+    int32, changed [B] bool → out [B, Y, X] (allocated unless given; it
+    must not alias prev).  The plane is read only inside code-1 rects.
+
+    CUDA kernel csrc/bc_compose.cu for tensors on the card — one launch for
+    all B streams; the plain twin only for tensors on the CPU.  Each
+    argument may be a strided view (e.g. plane[:, t] of a [B, T, Y, X]
+    window) as long as its rows are contiguous."""
+    if prev.device.type == "cpu":
+        return cpu_result(bc_compose_ref(prev, plane, bcode, rloc, mvk,
+                                         changed), out)
+    if out is None:
+        out = torch.empty_like(prev, memory_format=torch.contiguous_format)
+    args = _kmv_launch_args("bc_compose", prev, plane, mvk, changed, out,
+                            pix_name="plane")
+    B, Y, X = prev.shape
+    nb = math.prod(block_grid(Y, X))
+    for name, t, tail in (("bcode", bcode, ()), ("rloc", rloc, (4,))):
+        if t.device != prev.device or t.dtype != torch.uint8:
+            raise TypeError(f"bc_compose: {name} must be a uint8 tensor on "
+                            f"the frames' device, got {t.dtype} on "
+                            f"{t.device}")
+        if tuple(t.shape) != (B, nb) + tail or t.stride(-1) != 1 or (
+                tail and t.stride(-2) != 4):
+            raise ValueError(f"bc_compose: {name} must be "
+                             f"{[B, nb, *tail]} with contiguous rows, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if B and Y and X:
+        lib = _build.load()
+        with torch.cuda.device(prev.device):
+            rc = lib.jsp_bc_compose(
+                *args, bcode.data_ptr(), bcode.stride(0), rloc.data_ptr(),
+                rloc.stride(0), B, Y, X, mvk.shape[-2],
+                torch.cuda.current_stream(prev.device).cuda_stream)
+        _build.check(rc, "bc_compose")
+        bc_compose.launches += 1
+    return out
+
+
+bc_compose.launches = 0  # kernel launches (the plain path does not count)
+
+
+def compose_frame_bc(prev, plane, bcode, rect, mvk):
+    """Single-frame compose, the reference's signature: prev/plane [Y, X],
+    bcode [NB] u8, rect [NB, 4] u8, mvk [K, 2] → [Y, X]."""
+    chg = torch.ones(1, dtype=torch.bool, device=prev.device)
+    return bc_compose(prev[None], plane[None], bcode[None], rect[None],
+                      mvk[None], chg)[0]
+
+
+def decode_batch_bc(init_frames, plane, bcode, rect, mvk, changed):
+    """Batched bc scan: init [B,Y,X], plane [B,T,Y,X], bcode [B,T,NB],
+    rect [B,T,NB,4], mvk [B,T,K,2], changed [B,T] → frames [B,T,Y,X]; one
+    launch per step over all B."""
+    return scan_steps(bc_compose, init_frames, (plane, bcode, rect, mvk),
+                      changed)
+
+
+def decode_sequence_bc(init_frame, plane, bcode, rect, mvk, changed):
+    """One stream: init [Y,X], plane [T,Y,X], … → frames [T,Y,X]."""
+    return decode_batch_bc(init_frame[None], plane[None], bcode[None],
+                           rect[None], mvk[None], changed[None])[0]
+
+
+def decode_sequence_bc_compact(init_frame, plane, bcode, rect, mvk):
+    """bc scan over changed frames only (every input frame composes)."""
+    chg = torch.ones(plane.shape[0], dtype=torch.bool, device=plane.device)
+    return decode_sequence_bc(init_frame, plane, bcode, rect, mvk, chg)
+
+
+def decode_batch_bc_model(init_frames, plane, bcode, rect, mvk, changed,
+                          dtype=torch.bfloat16, layout="NHWC", downscale=1,
+                          bpp16=False, packed=False):
+    """Batched bc decode fused straight into model tensors.
+    → (carry [B,Y,X] for the next window, model [B,T,...])."""
+    kw = dict(dtype=dtype, layout=layout, downscale=downscale, bpp16=bpp16,
+              packed=packed)
+    return _scan_model(bc_compose, init_frames, (plane, bcode, rect, mvk),
+                       changed, kw)
 
 
 # ---------------------------------------------------------------------------
@@ -613,3 +773,55 @@ def compact_changed_batch(paycode, mvk, changed):
         valid[b, :c] = True
         outmap[b] = np.cumsum(changed[b]).astype(np.int32) - 1
     return pcc, mvkc, valid, outmap
+
+
+def prepare_bc(bts, mv, rect, payload, K: int = 4):
+    """Host prep (numpy reference): → (plane [T,Y,X] u32, bcode [T,NB] u8,
+    rloc [T,NB,4] u8, mvk [T,K,2]).  The plane here is simply the decoded
+    frame (data pixels are a subset); the native twin writes only data-rect
+    pixels — both are valid bc transports because non-data plane bytes are
+    never read."""
+    T, NB = bts.shape
+    Y, X = payload.shape[-2:]
+    nbx = (X + 15) // 16
+    mvk, group, demoted = derive_kmv_commands(bts, mv, rect, K)
+    bcode = np.zeros((T, NB), dtype=np.uint8)
+    rloc = np.zeros((T, NB, 4), dtype=np.uint8)
+    bxy = np.empty((NB, 4), dtype=np.int64)
+    bxy[:, 0] = bxy[:, 2] = (np.arange(NB) % nbx) * 16
+    bxy[:, 1] = bxy[:, 3] = (np.arange(NB) // nbx) * 16
+    for t in range(T):
+        loc = np.clip(rect[t] - bxy, 0, 16).astype(np.uint8)
+        is_mot = (bts[t] == 3) | (bts[t] == 4)
+        data_blk = (bts[t] > 0) & ~is_mot & ~demoted[t]
+        bcode[t, data_blk] = 1
+        rloc[t, data_blk] = loc[data_blk]
+        bcode[t, demoted[t]] = 1
+        rloc[t, demoted[t]] = (0, 0, 16, 16)
+        mot = (group[t] >= 0) & ~demoted[t]
+        bcode[t, mot] = (2 + group[t, mot]).astype(np.uint8)
+        rloc[t, mot] = loc[mot]
+    plane = (payload & np.uint32(0x00FFFFFF)).astype(np.uint32)
+    return plane, bcode, rloc, mvk
+
+
+def compact_arrays_batch(arrays, changed):
+    """Batched still-elision over a tuple of [B, T, ...] arrays (the
+    generalization of compact_changed_batch for transports with more than
+    two per-frame inputs).  → (compacted tuple, valid [B,Cpad], outmap
+    [B,T])."""
+    changed = np.asarray(changed, dtype=bool)
+    B, T = changed.shape
+    counts = changed.sum(axis=1)
+    cpad = _elision_bucket(int(counts.max(initial=0)), T)
+    outs = [np.zeros((B, cpad) + a.shape[2:], dtype=a.dtype) for a in arrays]
+    valid = np.zeros((B, cpad), dtype=bool)
+    outmap = np.empty((B, T), dtype=np.int32)
+    for b in range(B):
+        idx = np.nonzero(changed[b])[0]
+        c = len(idx)
+        for o, a in zip(outs, arrays):
+            o[b, :c] = a[b, idx]
+        valid[b, :c] = True
+        outmap[b] = np.cumsum(changed[b]).astype(np.int32) - 1
+    return tuple(outs), valid, outmap

@@ -10,6 +10,10 @@ windows.
   * ``sp_device_path="kmv"`` (the main path): the host emits the kmv
     transport; the device scan may elide stills (CONCAT and PADDED layouts)
     and fuse the model epilogue.
+  * ``"bc"``: the host emits the bc transport (per-block codes and rects,
+    and a plane that holds only data-rect pixels); the device scan,
+    csrc/bc_compose.cu, may elide stills (CONCAT and PADDED layouts) and
+    fuse the model epilogue.
   * ``"general"`` and ``"pallas"``: the host captures each frame's block
     commands (bts/mv/rect) and decoded frame (payload); the device runs the
     block-command scan, csrc/sp_motion.cu in its general or fused mode.
@@ -46,7 +50,7 @@ from ..kernels.sp_motion_pallas import decode_batch_fused
 
 _LANE_MAGIC = b"JLV1"  # codecs/lane_format.py _MAGIC (not imported: jax)
 #: sp_device_path values the port runs; the others raise NotImplementedError
-PORTED_SP_PATHS = ("kmv", "general", "pallas")
+PORTED_SP_PATHS = ("kmv", "bc", "general", "pallas")
 
 # Process-wide host-buffer pool: window buffers are hundreds of MB and fresh
 # pages fault in slowly, so a new pipeline re-allocating them costs more
@@ -130,8 +134,9 @@ class IngestConfig:
     # unpack with rgb_convert.unpack_ds2
     model_packed: bool = False
     insignificant_lines: int = 0
-    # "kmv" (kmv transport), "general" or "pallas" (captured block
-    # commands; both ignore still_elision and emit_frames)
+    # "kmv" (kmv transport), "bc" (block-command transport), "general" or
+    # "pallas" (captured block commands; both ignore still_elision and
+    # emit_frames)
     sp_device_path: str = "kmv"
     kmv_k: int = 2
     sparse_lane_payload: bool = False
@@ -262,8 +267,8 @@ class VideoIngestPipeline:
         if self.cfg.sp_device_path not in PORTED_SP_PATHS:
             raise NotImplementedError(
                 f"sp_device_path={self.cfg.sp_device_path!r} is not ported "
-                f"yet (ROADMAP.md queue 1: bc item 9, lane item 10, "
-                f"kmv_sparse item 11)")
+                f"yet (ROADMAP.md queue 1: lane item 10, kmv_sparse item "
+                f"11)")
         if self.cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported yet (ROADMAP.md queue 1 "
@@ -419,7 +424,8 @@ class VideoIngestPipeline:
     def _release_buffers(self):
         # uploads are blocking copies (device.to_device), so no device work
         # still reads these host pages
-        for attr, key in (("_spbuf", ("sp",)), ("_kmvbuf", ("kmv",))):
+        for attr, key in (("_spbuf", ("sp",)), ("_kmvbuf", ("kmv",)),
+                          ("_bcbuf", ("bc",))):
             buf = getattr(self, attr, None)
             if buf is not None:
                 _pool_release(key + self._buf_key, buf)
@@ -475,6 +481,8 @@ class VideoIngestPipeline:
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
         K = self.cfg.kmv_k
         decs = self._sp_decoders()
+        if self.cfg.sp_device_path == "bc":
+            return self._decode_sp_window_bc(chunk, start, decs)
         if self.cfg.sp_device_path == "kmv" and self._sp_native:
             # the native decoder emits the kmv transport during decode
             if getattr(self, "_kmvbuf", None) is None:
@@ -684,6 +692,148 @@ class VideoIngestPipeline:
             return out
         frames = sp_recon.decode_batch_kmv(
             init, self._put(pcc), self._put(mvkc), self._put(valid))
+        self._carry = frames[:, -1]
+        flat = frames.reshape((B * cpad,) + frames.shape[2:])
+        if self.cfg.emit_frames:
+            out["frames_u32"] = flat
+        if self.cfg.emit_model_input:
+            out["model_input"] = self._model_tensors(flat)
+        return out
+
+    # -- the bc transport ------------------------------------------------------
+
+    def _decode_sp_window_bc(self, chunk, start, decs) -> dict:
+        """bc transport host stage: the native decoder fills ONLY data-rect
+        plane pixels of a pooled window (no motion fills, no clears, no
+        dirty state); the pure-Python oracle branch builds the transport
+        with prepare_bc.  The block structure rides bcode/rloc."""
+        vi = self.info
+        X, Y = vi.width, vi.height
+        B, T = len(chunk), self.cfg.window
+        nb = ((X + 15) // 16) * ((Y + 15) // 16)
+        K = self.cfg.kmv_k
+        if getattr(self, "_bcbuf", None) is None:
+            self._bcbuf = _pool_acquire(
+                ("bc",) + self._buf_key, lambda: dict(
+                    plane=np.zeros((B, T, Y, X), dtype=np.uint32),
+                    mvk=np.zeros((B, T, K, 2), dtype=np.int32),
+                    bcode=np.zeros((B, T, nb), dtype=np.uint8),
+                    rloc=np.zeros((B, T, nb, 4), dtype=np.uint8)))
+        buf = self._bcbuf
+        plane, mvk = buf["plane"], buf["mvk"]
+        bcode, rloc = buf["bcode"], buf["rloc"]
+        changed = np.zeros((B, T), dtype=bool)
+        sig = np.zeros((B, T), dtype=bool)
+        if self._sp_native:
+            for b, frames in enumerate(chunk):
+                dec = decs[b]
+                for t, src in enumerate(frames):
+                    changed[b, t], sig[b, t] = self._guard(
+                        b, lambda: dec.decompress_bc(
+                            src, dec.is_key_frame(src), plane[b, t],
+                            mvk[b, t], bcode[b, t], rloc[b, t], K=K),
+                        default=(False, False))
+        else:
+            for b, frames in enumerate(chunk):
+                dec = decs[b]
+                bts = np.zeros((T, nb), dtype=np.int32)
+                mv = np.zeros((T, nb, 2), dtype=np.int32)
+                rect = np.zeros((T, nb, 4), dtype=np.int32)
+                payload = np.zeros((T, Y, X), dtype=np.uint32)
+                for t, src in enumerate(frames):
+                    got = self._guard(b, lambda: _oracle_decode_step(
+                        dec, src, dec.is_key_frame(src), X, Y))
+                    if got is None:  # quarantined: changed stays False
+                        continue
+                    sig[b, t], cap = got
+                    # None until the stream's first real frame: the plane
+                    # row stays as it is (changed gating never reads it)
+                    data = dec.previous_frame()
+                    if data is not None:
+                        payload[t] = data.reshape(Y, X)
+                    bts[t], mv[t], rect[t] = (cap["bts"], cap["mv"],
+                                              cap["rect"])
+                    changed[b, t] = cap["changed"]
+                (plane[b], bcode[b], rloc[b], mvk[b]) = sp_recon.prepare_bc(
+                    bts, mv, rect, payload, K=K)
+        return self._bc_route(plane, bcode, rloc, mvk, changed, sig, start)
+
+    def _bc_route(self, plane, bcode, rloc, mvk, changed, sig, start) -> dict:
+        """Dispatch an assembled bc window to still-elided scans, fused
+        model emission, or the dense batch scan (as _kmv_route does)."""
+        B = plane.shape[0]
+        init = self._carry_init(B)
+        if self.cfg.still_elision:
+            return self._bc_elided(plane, bcode, rloc, mvk, changed, sig,
+                                   init, start)
+        dev = [self._put(a) for a in (plane, bcode, rloc, mvk, changed)]
+        if not self.cfg.emit_frames and self.cfg.emit_model_input:
+            carry, model = sp_recon.decode_batch_bc_model(
+                init, *dev, dtype=self._model_dtype,
+                downscale=self.cfg.model_downscale, bpp16=self._bpp16,
+                packed=self.cfg.model_packed)
+            self._carry = carry
+            return {"start_frame": start, "significant": self._put(sig),
+                    "model_input": model}
+        frames = sp_recon.decode_batch_bc(init, *dev)
+        self._carry = frames[:, -1]
+        return self._emit(frames, self._put(sig), start)
+
+    def _bc_elided(self, plane, bcode, rloc, mvk, changed, sig, init,
+                   start) -> dict:
+        """Still-elision for the bc transport: _kmv_elided's output
+        contract (flat row stack + outmap), the CONCAT layout when every
+        stream's first compacted slot overwrites the whole frame (code 1,
+        rect (0, 0, 16, 16) in every block), PADDED otherwise."""
+        B = plane.shape[0]
+        vi = self.info
+        (plc, bcc, rlc, mvkc), valid, outmap = sp_recon.compact_arrays_batch(
+            (plane, bcode, rloc, mvk), changed)
+        cpad = plc.shape[1]
+        counts = valid.sum(axis=1).astype(np.int64)
+        out = {"start_frame": start, "significant": self._put(sig)}
+        if cpad == 0:  # all streams all-stills: nothing to decode
+            out["outmap"] = outmap
+            if self.cfg.emit_frames:
+                out["frames_u32"] = torch.zeros(
+                    (0, vi.height, vi.width), dtype=torch.int32,
+                    device=self.device)
+            return out
+        full_first = all(
+            counts[b] == 0
+            or (bool((bcc[b, 0] == 1).all())
+                and bool((rlc[b, 0] == (0, 0, 16, 16)).all()))
+            for b in range(B))
+        self.stats["concat_windows" if full_first else "padded_windows"] += 1
+        if full_first:
+            offsets = np.zeros(B, dtype=np.int64)
+            np.cumsum(counts[:-1], out=offsets[1:])
+
+            def cat(a):
+                return self._put(np.concatenate(
+                    [a[b, : counts[b]] for b in range(B)]))
+
+            outmap_flat = np.where(
+                outmap >= 0, outmap + offsets[:, None], -1).astype(np.int32)
+            frames = sp_recon.decode_sequence_bc_compact(
+                init[0], cat(plc), cat(bcc), cat(rlc), cat(mvkc))
+            ends = offsets + counts  # exclusive
+            self._carry = torch.stack([
+                frames[int(ends[b]) - 1] if counts[b] else init[b]
+                for b in range(B)])
+            out["outmap"] = outmap_flat
+            if self.cfg.emit_frames:
+                out["frames_u32"] = frames
+            if self.cfg.emit_model_input:
+                out["model_input"] = self._model_tensors(frames)
+            return out
+        outmap_flat = np.where(
+            outmap >= 0,
+            outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
+            -1).astype(np.int32)
+        out["outmap"] = outmap_flat
+        frames = sp_recon.decode_batch_bc(
+            init, *(self._put(a) for a in (plc, bcc, rlc, mvkc, valid)))
         self._carry = frames[:, -1]
         flat = frames.reshape((B * cpad,) + frames.shape[2:])
         if self.cfg.emit_frames:

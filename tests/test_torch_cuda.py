@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_bc_cases import BC_CASES, run_bc_case
 from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
     rows_view
 
@@ -371,3 +372,130 @@ def test_ds_probe_kernel(dev, mode, C, Y, X, BH):
     assert got.data_ptr() == stack[:, 1].data_ptr()
     torch.testing.assert_close(stack[:, 1].cpu(), want, rtol=0, atol=0)
     assert (stack[:, 0] == fill).all() and (stack[:, 2] == fill).all()
+
+
+@pytest.mark.parametrize("C,Y,X,BH,offset", [
+    (1, 130, 1000, 128, 0), (5, 37, 45, 12, 0), (2, 300, 130, 128, 1),
+    (3, 64, 260, 32, 2), (1, 1080, 1920, 128, 1), (5, 200, 96, 8, 0)])
+def test_block_transpose_odd_shapes(dev, C, Y, X, BH, offset):
+    """block_transpose against its twin where Y is not a multiple of BH, X
+    not a multiple of 4 or of the kernel's 128-column tile, C = 1 and 5, BH
+    below the 32-row tile, and frames viewed `offset` words into a buffer
+    (the 4-byte path) with an output slot between untouched ones."""
+    from jsplayer_tpu_torch.experiments.probes import probe_ref, probe_shape
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+
+    f = rand_u32((C, Y, X), seed=C * 7 + Y + X)
+    want = probe_ref(f, "block_transpose", BH)
+    frames = rows_view(f.to(dev), offset, 0)
+    _, Ho, Wo = probe_shape("block_transpose", C, Y, X, BH)
+    fill = 0x7EADBEEF
+    stack = torch.full((C, 3, Ho, Wo), fill, dtype=torch.int32, device=dev)
+    before = ds_probe.by_mode["block_transpose"]
+    ds_probe(frames, "block_transpose", BH, out=stack[:, 1])
+    torch.cuda.synchronize()
+    assert ds_probe.by_mode["block_transpose"] == before + 1
+    torch.testing.assert_close(stack[:, 1].cpu(), want, rtol=0, atol=0)
+    assert (stack[:, 0] == fill).all() and (stack[:, 2] == fill).all()
+
+
+@pytest.mark.parametrize("case", sorted(BC_CASES))
+def test_bc_kernel_cases(dev, case):
+    """csrc/bc_compose.cu against its plain twin, bit for bit, on the
+    shapes, layouts and commands that pick each path of the kernel
+    (tests/test_torch_bc_cases.py BC_CASES): X % 4 != 0, odd Y and X,
+    Y % 16 != 0, offset and odd-stride views (4-byte path), window views
+    (16-byte path), rloc rows off a 4-byte boundary, split and whole rects,
+    codes past the motion slots, wrapping vectors, K = 0 and 8, unchanged
+    streams with garbage commands, B = 1 and 5."""
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose_ref
+
+    prev, args, chg, got = run_bc_case(case, dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, bc_compose_ref(prev, *args, chg),
+                               rtol=0, atol=0)
+
+
+def test_bc_kernel_never_uses_the_plane_outside_data_rects(dev):
+    """Inverting every plane word outside the code-1 rects leaves a B=4
+    1080p step unchanged."""
+    from jsplayer_tpu_torch.experiments.common import bc_data_pixels
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose, bc_compose_ref
+
+    B, Y, X, K = 4, 1080, 1920, 2
+    rng = np.random.default_rng(4)
+    nb = ((Y + 15) // 16) * ((X + 15) // 16)
+    prev, plane = rand_u32((B, Y, X), 1).to(dev), rand_u32((B, Y, X), 2)
+    bcode = torch.from_numpy(rng.integers(0, K + 3, (B, nb)).astype(np.uint8))
+    rloc = rng.integers(0, 21, (B, nb, 4)).astype(np.uint8)
+    rloc[rng.random((B, nb)) < 0.5] = (0, 0, 16, 16)
+    rloc = torch.from_numpy(rloc)
+    mvk = torch.from_numpy(rng.integers(-3 * X, 3 * X, (B, K, 2))
+                           .astype(np.int32))
+    keep = torch.stack([bc_data_pixels(bcode[b], rloc[b], Y, X)
+                        for b in range(B)])
+    flipped = torch.where(keep, plane, ~plane)
+    chg = torch.tensor([True, True, False, True], device=dev)
+    args = [a.to(dev) for a in (bcode, rloc, mvk)]
+    got = bc_compose(prev, plane.to(dev), *args, chg)
+    again = bc_compose(prev, flipped.to(dev), *args, chg)
+    want = bc_compose_ref(prev, plane.to(dev), *args, chg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_bc_kernel_rejects_aliased_out_and_wrong_types(dev):
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose
+
+    prev = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
+    bcode = torch.zeros((2, 1), dtype=torch.uint8, device=dev)
+    rloc = torch.zeros((2, 1, 4), dtype=torch.uint8, device=dev)
+    mvk = torch.zeros((2, 2, 2), dtype=torch.int32, device=dev)
+    chg = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="alias"):
+        bc_compose(prev, prev.clone(), bcode, rloc, mvk, chg, out=prev)
+    with pytest.raises(TypeError, match="uint8"):
+        bc_compose(prev, prev.clone(), bcode.int(), rloc, mvk, chg)
+    with pytest.raises(ValueError, match="rloc"):
+        bc_compose(prev, prev.clone(), bcode, rloc[:, :, :2], mvk, chg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(still_elision=True, model_downscale=2),
+    dict(still_elision=True, emit_frames=False, model_downscale=2),
+    dict(emit_frames=False, model_downscale=2),
+    dict(model_downscale=2, model_packed=True, emit_frames=False)])
+def test_bc_ingest_cuda_matches_cpu(dev, kw):
+    """The bc path on the card against the same pipeline on the CPU (the
+    plain twins): elided (CONCAT and PADDED), dense model-only and packed."""
+    from jsplayer_tpu_torch.core.source import MemorySource
+    from jsplayer_tpu_torch.pipeline import ingest as P
+
+    avis = [stills_avi(s) for s in (3, 7, 11)]
+    if kw.get("model_packed"):
+        avis = avis[:1]
+    outs, stats = {}, {}
+    for d in ("cpu", "cuda"):
+        pipe = P.VideoIngestPipeline(
+            [MemorySource(a) for a in avis],
+            P.IngestConfig(device=d, window=5, sp_device_path="bc", **kw))
+        outs[d] = list(pipe)
+        stats[d] = pipe.stats
+    assert stats["cuda"] == stats["cpu"]
+    if kw.get("still_elision"):
+        assert stats["cpu"]["concat_windows"] and \
+            stats["cpu"]["padded_windows"]
+    assert len(outs["cpu"]) == len(outs["cuda"]) > 1
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert a.keys() == b.keys()
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, b[k].cpu()), k
+            else:
+                np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
+
+
+def test_validate_legs_on_the_card(dev):
+    from jsplayer_tpu_torch import validate
+
+    assert validate.run("cuda") == {leg: True for leg in validate.LEGS}

@@ -289,7 +289,7 @@ def test_unported_paths_raise(what):
     srcs = [MemorySource(SP3[0])]
     kw = dict(device="cpu")
     if what == "path":
-        kw["sp_device_path"] = "bc"
+        kw["sp_device_path"] = "kmv_sparse"
     elif what == "mesh":
         kw["mesh"] = object()
     elif what == "msv1":
@@ -379,7 +379,120 @@ def test_block_command_paths_quarantine(path, native, monkeypatch):
 
 @pytest.mark.parametrize("path", ["bc", "kmv_sparse", "lane"])
 def test_unported_sp_paths_raise(path):
+    """kmv_sparse and lane are not ported; bc is, but not over a mesh."""
+    kw = dict(mesh=object()) if path == "bc" else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.VideoIngestPipeline([MemorySource(SP3[0])],
                               P.IngestConfig(device="cpu",
-                                             sp_device_path=path))
+                                             sp_device_path=path, **kw))
+
+
+# -- the "bc" path (block-command transport) ----------------------------------
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("kw", [
+    dict(window=4),
+    dict(window=4, model_downscale=2),
+    dict(window=4, emit_frames=False, model_downscale=2),
+    dict(window=4, emit_frames=False),
+    dict(window=3, streaming=True),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_bc_dense_windows(native, kw, monkeypatch):
+    """Dense bc windows on both host branches: native decompress_bc into
+    the pooled window and the oracle through prepare_bc; emit_frames=False
+    runs decode_batch_bc_model."""
+    if not native:
+        no_native(monkeypatch)
+    pp = compare(SP3, sp_device_path="bc", **kw)
+    assert pp._sp_native is native
+
+
+def test_bc_packed_model_only_single_stream():
+    """model_packed, emit_frames=False: one stream, since the reference's
+    batched packed model scan fails for B>1 (ROADMAP.md queue 3)."""
+    compare(SP3[:1], sp_device_path="bc", window=4, emit_frames=False,
+            model_downscale=2, model_packed=True)
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("kw", [
+    dict(window=6, still_elision=True),
+    dict(window=6, still_elision=True, emit_frames=False,
+         model_downscale=2),
+    dict(window=6, still_elision=True, model_downscale=2,
+         model_packed=True),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_bc_still_elision_both_layouts(native, kw, monkeypatch):
+    if not native:
+        no_native(monkeypatch)
+    pp = compare(STILLS3, sp_device_path="bc", **kw)
+    assert pp.stats == {"concat_windows": 1, "padded_windows": 1}
+
+
+def test_bc_keyframe_aligned_concat_and_padded_control():
+    kw = dict(sp_device_path="bc", window=8, still_elision=True,
+              model_downscale=2)
+    pp = compare(ALIGNED2, **kw)
+    assert pp.stats == {"concat_windows": 4, "padded_windows": 0}
+    mid = single_key_stream()
+    pp = compare([mid, mid], **kw)
+    assert pp.stats == {"concat_windows": 1, "padded_windows": 2}
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window=4, still_elision=True),
+    dict(window=6, still_elision=True, emit_frames=False,
+         model_downscale=2),
+])
+def test_bc_single_stream_still_elision(kw):
+    """One stream takes the batched elision path (the reference's bc route
+    has no single-stream branch)."""
+    compare(STILLS3[:1], sp_device_path="bc", **kw)
+    compare(SP3[:1], sp_device_path="bc", **kw)
+
+
+def test_bc_all_stills_window():
+    enc = ScreenPressorEncoder(4, 32, 32)
+    f = np.full(32 * 32, 0x030201, dtype=np.uint32)
+    streams = [enc.encode_i(f)] + [enc.encode_p(f) for _ in range(7)]
+    g = f.copy()
+    g[:32] = 0x090909
+    streams.append(enc.encode_p(g))
+    avi = mux_avi(streams, 32, 32, 24, codec="SPV4",
+                  keyflags=[t == 0 for t in range(len(streams))])
+    compare([avi, avi], sp_device_path="bc", window=4, still_elision=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window=4, frame_range=(6, 10)),
+    dict(window=3, frame_range=(2, 9), model_downscale=2),
+])
+def test_bc_frame_range(kw):
+    compare(SP3[:2], sp_device_path="bc", **kw)
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("elide", [False, True])
+def test_bc_quarantine(native, elide, monkeypatch):
+    """A stream that fails mid-run freezes; its stale pooled rows never
+    reach the frames (changed is False for them)."""
+    if not native:
+        no_native(monkeypatch)
+    jp, pp = pipelines(SP3[:2], sp_device_path="bc", window=4,
+                       still_elision=elide)
+    for p in (jp, pp):
+        _poison_second_stream(p, fail_at=6)
+    assert_windows_equal(list(jp), list(pp))
+    assert pp.quarantined == jp.quarantined == {1}
+
+
+def test_bc_ingest_cli(tmp_path, capsys):
+    """`--path bc` reaches the port's bc path from the CLI."""
+    from jsplayer_tpu_torch.__main__ import main as pmain
+
+    p = tmp_path / "s.avi"
+    p.write_bytes(STILLS3[0])
+    assert pmain(["ingest", str(p), "--path", "bc", "--window", "6",
+                  "--elide", "--downscale", "2", "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["streams"] == 1 and res["frames_decoded"] > 0

@@ -78,6 +78,34 @@ def test_pallas_path_runs_without_importing_jax():
     assert proc.stdout.strip() == "ok 8"
 
 
+TINY_BC = TINY_INGEST.split("pipe = ")[0] + r"""
+pipe = jt.VideoIngestPipeline(
+    [jt.MemorySource(avi), jt.MemorySource(avi)],
+    jt.IngestConfig(window=4, sp_device_path="bc", still_elision=True,
+                    model_downscale=2, device="cpu"))
+n = sum(int(np.asarray(b["outmap"]).size) for b in pipe)
+from jsplayer_tpu_torch import validate
+legs = validate.run("cpu")
+assert legs == {leg: True for leg in validate.LEGS}, legs
+from jsplayer_tpu_torch.pipeline.batch import stack_sp_commands
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
+print("ok", n, len(legs))
+"""
+
+
+def test_bc_path_and_validate_run_without_importing_jax():
+    """The bc ingest path, jsplayer_tpu_torch.validate's legs and
+    pipeline/batch.py import no jax and nothing of jsplayer_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_BC], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 16 5"
+
+
 def port_sources():
     """chip_smoke.py and every .py file of the port's package."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
@@ -189,6 +217,21 @@ def test_block_kernels_never_take_the_plain_path(no_cuda):
         sp_motion_mxu.launches == 0
 
 
+def test_bc_kernel_never_takes_the_plain_path(no_cuda):
+    """bc_compose: a tensor off the CPU goes to the kernel branch, which
+    raises here (no card)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import bc_compose
+
+    plane = torch.empty((1, 16, 16), dtype=torch.int32, device="meta")
+    u8 = dict(dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        bc_compose(plane, plane, torch.empty((1, 1), **u8),
+                   torch.empty((1, 1, 4), **u8),
+                   torch.empty((1, 2, 2), dtype=torch.int32, device="meta"),
+                   torch.ones(1, dtype=torch.bool, device="meta"))
+    assert bc_compose.launches == 0
+
+
 TINY_EXPERIMENTS = r"""
 import importlib, pkgutil, sys
 import torch
@@ -224,8 +267,9 @@ def test_experiments_run_without_importing_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == [
-        "ok", "block_step", "common", "exp_model_fusion2", "exp_pallas_bisect",
-        "exp_pallas_ds", "exp_pallas_ds2", "kmv_step", "probes", "streams"]
+        "ok", "bc_step", "block_step", "common", "exp_model_fusion2",
+        "exp_pallas_bisect", "exp_pallas_ds", "exp_pallas_ds2", "kmv_step",
+        "probe_step", "probes", "streams"]
 
 
 def test_experiment_kernels_never_take_the_plain_path(no_cuda):
