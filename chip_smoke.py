@@ -27,8 +27,26 @@ for bit.  bc_compose is held against its twin on random B=4 1080p inputs
 (wrapping vectors, codes past the motion slots, an unchanged stream, plane
 words outside the data rects that differ between two calls, which must
 agree), on the native bc transport's B=4 step with the most motion, and
-over stream 0's B=1 steps.  The validate phase runs jsplayer_tpu_torch.
-validate's five parity legs on the card.  Then phase (e), the ds2
+over stream 0's B=1 steps.  The lane path: the streams transcoded by the
+port's transcode_to_lane (window=64, K=2; raw and rans payloads, in
+threads, the seconds logged apart); lane_compose (csrc/bc_compose.cu's
+lane instance) against its twin on a random B=4 1080p step (wrapping
+vectors, codes past 2+K, an unchanged stream, row indices negative and
+past both ends, rows with the top byte set), on the raw containers' B=4
+step with the most motion and over stream 0's B=1 steps; runs
+
+  (h) lane, raw payload, dense, frames + ds2 model tensors;
+  (i) lane, raw payload, still-elided (found by the containers' magic),
+      frames + model tensors;
+  (j) lane, rans payload, dense, frames + model tensors
+
+(frames equal to the source frames on their low 24 bits); and, after the
+validate phase, rans_decode_aligned and rans_decode_packed (csrc/
+rans_lanes.cu) against their twins at N=4096, B=4 on a dense 1080p window
+(experiments/lane_step.dense_rans, encoded once) and on random u32
+states, refills and lane bytes, then roundtrip_decode, the packed
+decode's route.  The validate phase runs jsplayer_tpu_torch.validate's
+eight parity legs on the card.  Then phase (e), the ds2
 experiments (jsplayer_tpu_torch.
 experiments): kmv_compose_ds2 (csrc/kmv_compose.cu's fused compose+ds2
 instance) on random inputs and every mode of csrc/ds_probe.cu at its
@@ -44,7 +62,8 @@ compose kernels and every ds_probe mode also give `graph_ms`, the same
 calls replayed as a CUDA graph (device time without the host's launch
 cost).  Every time stands beside its bound: the bytes the function must
 move on this run's data over 3.35 TB/s; the B=1 scans add a DRAM-only
-bound without the reads of prev, the step before's out, warm in L2.
+bound without the reads of prev, the step before's out, warm in L2; the
+rANS decodes add Msym/s.
 ds_probe's block_transpose mode also gives torch's own transpose copy
 (`library_ms`) on a [4, 1024, 1920] input, beside the kernel's time there.
 
@@ -248,7 +267,8 @@ def run_ingest(avis, still_elision=True, **kw):
     dt = time.perf_counter() - t0
     require(not pipe.quarantined, f"no stream quarantined "
             f"({pipe.quarantine_errors})")
-    return batches, dict(pipe.stats), dt
+    # the lane path keeps no elision-layout stats (as the reference)
+    return batches, dict(getattr(pipe, "stats", {})), dt
 
 
 def timeline_rows(batches, b):
@@ -281,6 +301,9 @@ def gather(batches, rows, key):
 def kernel_counters() -> dict:
     """name → the wrapper whose `.launches` counts that kernel's launches."""
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+    from jsplayer_tpu_torch.kernels.lane_recon import lane_compose
+    from jsplayer_tpu_torch.kernels.rans_lanes import (rans_decode_aligned,
+                                                       rans_decode_packed)
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
     from jsplayer_tpu_torch.kernels.sp_motion_mxu import sp_motion_mxu
     from jsplayer_tpu_torch.kernels.sp_motion_pallas import sp_motion_patch
@@ -293,7 +316,9 @@ def kernel_counters() -> dict:
             "sp_motion_patch": sp_motion_patch,
             "sp_motion_mxu": sp_motion_mxu,
             "kmv_compose_ds2": kmv_compose_ds2, "ds_probe": ds_probe,
-            "bc_compose": bc_compose}
+            "bc_compose": bc_compose, "lane_compose": lane_compose,
+            "rans_decode_aligned": rans_decode_aligned,
+            "rans_decode_packed": rans_decode_packed}
 
 
 def count_launches(fn):
@@ -766,8 +791,309 @@ def phase_bc_runs(card: str, avis, src, models) -> dict:
                                                        "ds2_pack")}
 
 
+# ---------------------------------------------------------------------------
+# The lane path: lane_compose, the rANS decodes, runs (h), (i) and (j)
+
+def require24(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """got equals want on the low 24 bits of every word (the lane path's
+    frames, as scripts/tpu_validate.py compares them)."""
+    require(got.shape == want.shape
+            and torch.equal(got & 0xFFFFFF, want & 0xFFFFFF), what)
+
+
+def lane_containers(avis) -> dict:
+    """The streams transcoded by the port's transcode_to_lane(window=64,
+    K=2), each stream in a thread, raw and rans payloads → {payload:
+    [container bytes]}; the seconds are logged apart from every run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jsplayer_tpu_torch import transcode_to_lane
+
+    out = {}
+    for payload in ("raw", "rans"):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(avis)) as ex:
+            out[payload] = list(ex.map(lambda a: transcode_to_lane(
+                a, window=WINDOW, K=2, payload=payload), avis))
+        log(f"transcode_to_lane ({payload}) of {len(avis)} x {T} frames, "
+            f"{len(avis)} threads: {time.perf_counter() - t0:.3f} s, "
+            f"{sum(map(len, out[payload]))} container bytes")
+    return out
+
+
+def phase_lane_kernel(card: str) -> dict:
+    """lane_compose against its twin on the random B=4 1080p step
+    (experiments/lane_step.step_inputs: wrapping vectors, codes past 2+K,
+    stream 2 unchanged, row indices negative and past both ends, rows with
+    the top byte set), bit for bit."""
+    from jsplayer_tpu_torch.experiments.lane_step import (lane_bytes,
+                                                          step_inputs)
+    from jsplayer_tpu_torch.kernels.lane_recon import (lane_compose,
+                                                       lane_compose_ref)
+
+    prev, args, chg = step_inputs(DEV)
+    got = lane_compose(prev, *args, chg)
+    want = lane_compose_ref(prev, *args, chg)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(torch.equal(got, want), "lane_compose bit-exact vs plain")
+    out = torch.empty_like(prev)
+
+    def step():
+        lane_compose(prev, *args, chg, out=out)
+
+    return dict(max_abs_err=err, **step_report(
+        "lane_compose", f"[{B},{Y},{X}] K=2 random step, Ur="
+        f"{args[0].shape[1]}, bit-exact", card, time_ms(step),
+        graph_ms(step), time_ms(lambda: lane_compose_ref(prev, *args, chg)),
+        lane_bytes(prev, args, chg)))
+
+
+def lane_windows(conts) -> list:
+    """The raw containers parsed → for each window: (its first frame, rows
+    [B, Ur, X] on the card (the [:, :, :X] view of the unit gather, Ur
+    padded to the batch's largest), {row_idx [B, T, Y], btype, rect, mvk,
+    changed [B, T]} on the card).  The streams share window boundaries."""
+    from jsplayer_tpu_torch.codecs import lane_format
+    from jsplayer_tpu_torch.kernels.lane_recon import rows_batch, \
+        units_from_raw
+
+    cs = [lane_format.container_from_bytes(c) for c in conts]
+    ncol = lane_format.plane_cols(X) // 128
+    out, base = [], 0
+    for wi in range(len(cs[0].windows)):
+        ws = [c.windows[wi] for c in cs]
+        idx = [w.row_index(Y, ncol) for w in ws]
+        Ur = max(rt.shape[0] for rt, _ in idx)
+        U = max(w.n_units for w in ws)
+        table = np.zeros((len(ws), Ur, ncol), np.int32)
+        payload = np.zeros((len(ws), U, 3, 128), np.uint8)
+        for b, (w, (rt, _)) in enumerate(zip(ws, idx)):
+            table[b, : rt.shape[0]] = rt
+            payload[b, : w.n_units] = w.payload
+        rows = rows_batch(units_from_raw(torch.from_numpy(payload).to(DEV)),
+                          torch.from_numpy(table).to(DEV), X)
+        cmds = {k: torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(DEV)
+                for k, a in (("row_idx", [ri for _, ri in idx]),
+                             ("btype", [w.btype for w in ws]),
+                             ("rect", [w.rect for w in ws]),
+                             ("mvk", [w.mvk for w in ws]),
+                             ("changed", [w.changed for w in ws]))}
+        out.append((base, rows, cmds))
+        base += ws[0].T
+    require(base == T, f"the lane windows tile {T} frames")
+    return out
+
+
+def lane_step_args(rows, cmds, t, b=slice(None)):
+    """lane_compose's arguments after prev at step t of a window."""
+    return [rows[b], cmds["row_idx"][b, t], cmds["btype"][b, t],
+            cmds["rect"][b, t], cmds["mvk"][b, t]]
+
+
+def phase_lane_step(card: str, windows, src) -> dict:
+    """lane_compose on the captured B=4 step with the most motion blocks
+    (every stream changed) of the raw containers, against its twin and the
+    source frames."""
+    from jsplayer_tpu_torch.experiments.lane_step import lane_bytes
+    from jsplayer_tpu_torch.kernels.lane_recon import (lane_compose,
+                                                       lane_compose_ref)
+
+    best = None
+    for wi, (base, _, cmds) in enumerate(windows):
+        ok = cmds["changed"].all(dim=0)
+        n = torch.where(ok, (cmds["btype"] >= 2).sum(dim=(0, 2)), -1)
+        if base == 0:
+            n[0] = -1
+        t = int(n.argmax())
+        if best is None or int(n[t]) > best[0]:
+            best = (int(n[t]), wi, t)
+    n, wi, t = best
+    base, rows, cmds = windows[wi]
+    require(n >= 0, "a lane step with every stream changed")
+    prev = torch.stack([s[base + t - 1] for s in src]).to(DEV)
+    args = lane_step_args(rows, cmds, t)
+    chg = torch.ones(B, dtype=torch.bool, device=DEV)
+    got = lane_compose(prev, *args, chg)
+    want = lane_compose_ref(prev, *args, chg)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "lane_compose captured step bit-exact "
+            "vs plain")
+    require24(got, torch.stack([s[base + t] for s in src]).to(DEV),
+              "lane_compose captured step composes the source frames")
+    out = torch.empty_like(prev)
+
+    def step():
+        lane_compose(prev, *args, chg, out=out)
+
+    return dict(step=base + t, **step_report(
+        "lane_compose", f"[{B},{Y},{X}] captured step {base + t} ({n} "
+        f"motion blocks, Ur={rows.shape[1]}), bit-exact", card,
+        time_ms(step), graph_ms(step),
+        time_ms(lambda: lane_compose_ref(prev, *args, chg)),
+        lane_bytes(prev, args, chg)))
+
+
+def phase_lane_scan(card: str, windows, src) -> dict:
+    """lane_compose over stream 0's B=1 1080p steps of the raw container,
+    window by window from a zero frame (an unchanged step launches with
+    changed False), every frame equal to the source frame and to the plain
+    twin's scan → numbers per step, with the DRAM-only bound beside the
+    full one (prev, the step before's out, warm in the 50 MB L2)."""
+    from jsplayer_tpu_torch.experiments.lane_step import lane_bytes
+    from jsplayer_tpu_torch.kernels.lane_recon import (lane_compose,
+                                                       lane_compose_ref)
+
+    steps = [(base + t, [a[0:1] for a in lane_step_args(rows, cmds, t)],
+              cmds["changed"][0:1, t])
+             for base, rows, cmds in windows
+             for t in range(cmds["changed"].shape[1])]
+    frames = torch.empty((T, Y, X), dtype=torch.int32, device=DEV)
+    init = torch.zeros((1, Y, X), dtype=torch.int32, device=DEV)
+
+    def scan():
+        prev = init
+        for g, args, chg in steps:
+            lane_compose(prev, *args, chg, out=frames[g:g + 1])
+            prev = frames[g:g + 1]
+        return frames
+
+    def plain_scan():
+        prev, outs = init, []
+        for _, args, chg in steps:
+            prev = lane_compose_ref(prev, *args, chg)
+            outs.append(prev)
+        return torch.cat(outs)
+
+    frames.fill_(0x7EADBEEF)
+    got = scan()
+    want = plain_scan()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(torch.equal(got, want), "lane_compose B=1 scan of stream 0 "
+            "bit-exact vs plain")
+    require24(got, src[0].to(DEV), "lane_compose B=1 scan of stream 0: "
+              "every frame == source frame")
+    del want
+    nbytes = [lane_bytes(init, args, chg, dram=dram)
+              for dram in (False, True) for _, args, chg in steps]
+    dram = bound(sum(nbytes[T:]))["bound_ms"] / T
+    res = dict(steps=T, max_abs_err=err, **step_report(
+        "lane_compose", f"[1,{Y},{X}] stream 0 scan, {T} steps, bit-exact",
+        card, time_ms(scan, iters=5) / T,
+        graph_ms(scan, iters=1, replays=10) / T,
+        time_ms(plain_scan, iters=2, warmup=1) / T,
+        sum(nbytes[:T]) // T, dram_bound_ms=dram))
+    log(f"lane_compose B=1 scan: DRAM-only bound {dram:.4f} ms/step, "
+        f"{100 * dram / res['graph_ms']:.1f}% (graph)")
+    return res
+
+
+def phase_lane_runs(card: str, conts, src, models) -> dict:
+    """Runs (h) raw dense, (i) raw still-elided (found by the containers'
+    magic, without sp_device_path) and (j) rans dense, each with frames and
+    ds2 model tensors: every frame equal to its source frame (low 24 bits)
+    and every model tensor to the plain epilogue → {kernel: launches over
+    the three runs}."""
+    total = {}
+    for name, payload, elide, kw in (
+            ("h", "raw", False, dict(sp_device_path="lane")),
+            ("i", "raw", True, {}),
+            ("j", "rans", False, dict(sp_device_path="lane"))):
+        (batches, _, dt), launches = count_launches(
+            lambda: run_ingest(conts[payload], still_elision=elide, **kw))
+        log(f"run ({name}) lane {payload}{' elided' if elide else ''}: "
+            f"{len(batches)} windows, {B * T} timeline frames in {dt:.3f} s "
+            f"= {B * T / dt:.1f} delivered frames/s, transcode excluded "
+            f"({card}); launches {launches}")
+        require_only(launches, ("lane_compose", "ds2_pack")
+                     + (("rans_decode_aligned",) if payload == "rans"
+                        else ()), f"run ({name})")
+        for k, v in launches.items():
+            if k != "ds_probe_modes":
+                total[k] = total.get(k, 0) + v
+        if elide:
+            for b in range(B):
+                rows = timeline_rows(batches, b)
+                require24(gather(batches, rows, "frames_u32"),
+                          src[b].to(DEV), f"run ({name}) stream {b} frames "
+                          f"== source frames")
+                check_model(gather(batches, rows, "model_input"), models[b],
+                            f"run ({name}) stream {b}")
+        else:
+            for w in batches:
+                t0, n = w["start_frame"], w["frames_u32"].shape[1]
+                for b in range(B):
+                    require24(w["frames_u32"][b], src[b][t0:t0 + n].to(DEV),
+                              f"run ({name}) stream {b} window @{t0} frames "
+                              f"== source frames")
+                    check_model(w["model_input"][b], models[b][t0:t0 + n],
+                                f"run ({name}) stream {b} window @{t0}")
+            require(sum(w["frames_u32"].shape[1] for w in batches) == T,
+                    f"run ({name}) covers {T} frames")
+        log(f"run ({name}): every stream's frames and model tensors "
+            f"bit-exact")
+        del batches
+    return total
+
+
+def phase_rans_kernels(card: str) -> tuple[dict, dict]:
+    """Both rANS decodes against their twins at N=4096 lanes, B=4, on the
+    dense 1080p window (experiments/lane_step.dense_rans: encoded once by
+    the port's build_freq_table, encode_lanes and layout_refills, repeated
+    over the 4 streams; every stream must decode to the source symbols) and
+    on random u32 states, refills and lane bytes; then roundtrip_decode,
+    rans_decode_packed's route (no ingest path runs it), on the dense
+    window → ({kernel: numbers}, launches in the round trip)."""
+    from jsplayer_tpu_torch.experiments import lane_step as LS
+    from jsplayer_tpu_torch.kernels import rans_lanes as R
+
+    t0 = time.perf_counter()
+    d = LS.dense_rans()
+    log(f"dense window: {d['n']} symbols, {d['steps']} steps of "
+        f"{LS.N_LANES} lanes, encoded in {time.perf_counter() - t0:.3f} s "
+        f"(host, once)")
+    inputs = {"dense": LS.rans_batch(d, DEV), "random": LS.random_rans(DEV)}
+    syms = torch.from_numpy(d["syms"]).to(DEV)
+    res = {}
+    for name, packed in (("rans_decode_aligned", False),
+                         ("rans_decode_packed", True)):
+        for what, a in inputs.items():
+            kernel, twin = LS.rans_call(a, packed)
+            got, want = kernel(), twin()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            require(torch.equal(got, want), f"{name} {what} bit-exact vs "
+                    f"plain")
+            if what == "dense":
+                require(all(torch.equal(got[b].reshape(-1)[: d["n"]], syms)
+                            for b in range(B)),
+                        f"{name} decodes the dense window's symbols")
+            ms, graph = time_ms(kernel), graph_ms(kernel)
+            r = dict(max_abs_err=err, msym_s=LS.msym_s(a, ms),
+                     graph_msym_s=LS.msym_s(a, graph), **step_report(
+                         name, f"[{B},{a['steps']},{LS.N_LANES}] {what}, "
+                         f"bit-exact", card, ms, graph,
+                         time_ms(twin, iters=2, warmup=1),
+                         LS.rans_bytes(a, packed)))
+            log(f"{name} {what}: {r['msym_s']:.0f} Msym/s through the "
+                f"wrapper, {r['graph_msym_s']:.0f} as a CUDA graph")
+            if what == "dense":
+                res[name] = r
+            else:
+                res[name]["random"] = r
+    del inputs
+    rt, launches = count_launches(lambda: R.roundtrip_decode(
+        d["lane_bytes"], d["states"], d["freq"], d["n"], LS.N_LANES,
+        device=str(DEV)))
+    require(np.array_equal(rt, d["syms"]), "roundtrip_decode on the card "
+            "recovers the dense window's symbols")
+    require_only(launches, ("rans_decode_packed",), "roundtrip_decode")
+    return res, launches
+
+
 def phase_validate(card: str) -> dict:
-    """jsplayer_tpu_torch.validate's five parity legs on the card, each
+    """jsplayer_tpu_torch.validate's eight parity legs on the card, each
     true, each through its kernel."""
     from jsplayer_tpu_torch import validate
 
@@ -778,7 +1104,8 @@ def phase_validate(card: str) -> dict:
     require(set(res) == set(validate.LEGS) and all(res.values()),
             f"every validate leg true ({res})")
     for k in ("sp_compose_general", "sp_motion_patch", "sp_motion_mxu",
-              "kmv_compose", "bc_compose"):
+              "kmv_compose", "bc_compose", "lane_compose",
+              "rans_decode_aligned"):
         require(launches[k] > 0, f"the validate legs launched {k}")
     return res
 
@@ -1070,8 +1397,20 @@ def main() -> int:
     del bc
     launches["bc_compose"] = phase_bc_runs(card, avis, src,
                                            models)["bc_compose"]
-    del avis, frames, chunks, src, models
+    conts = lane_containers(avis)
+    kernels["lane_compose"] = phase_lane_kernel(card)
+    windows = lane_windows(conts["raw"])
+    kernels["lane_compose"]["captured"] = phase_lane_step(card, windows, src)
+    kernels["lane_compose"]["b1_scan"] = phase_lane_scan(card, windows, src)
+    del windows
+    lane = phase_lane_runs(card, conts, src, models)
+    launches.update(lane_compose=lane["lane_compose"],
+                    rans_decode_aligned=lane["rans_decode_aligned"])
+    del avis, frames, chunks, src, models, conts
     phase_validate(card)
+    rans, rt = phase_rans_kernels(card)
+    kernels.update(rans)
+    launches["rans_decode_packed"] = rt["rans_decode_packed"]
 
     kernels.update(phase_experiment_kernels(card))
     stream = load_bench_mix()
@@ -1103,7 +1442,13 @@ def main() -> int:
                      "scripts/exp_pallas_ds2.py:31,35,41; "
                      "scripts/exp_pallas_bisect.py:19-65"),
         "bc_compose": ("jsplayer_tpu_torch/csrc/bc_compose.cu",
-                       "jsplayer_tpu/kernels/sp_recon.py:323")}
+                       "jsplayer_tpu/kernels/sp_recon.py:323"),
+        "lane_compose": ("jsplayer_tpu_torch/csrc/bc_compose.cu",
+                         "jsplayer_tpu/kernels/lane_recon.py:70"),
+        "rans_decode_aligned": ("jsplayer_tpu_torch/csrc/rans_lanes.cu",
+                                "jsplayer_tpu/kernels/rans_lanes.py:195"),
+        "rans_decode_packed": ("jsplayer_tpu_torch/csrc/rans_lanes.cu",
+                               "jsplayer_tpu/kernels/rans_lanes.py:102")}
     ref = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jsplayer_tpu", "jax"))
     require(not ref, f"the run imported nothing of jax or jsplayer_tpu "

@@ -1,10 +1,13 @@
 """Command-line surface of the port: ingest.
 
   python -m jsplayer_tpu_torch ingest a.avi b.avi --device cuda
+  python -m jsplayer_tpu_torch ingest a.jlv b.jlv --device cuda
 
 Flags and the JSON result line are those of ``python -m jsplayer_tpu
-ingest``, plus --device.  The other subcommands of the JAX package are not
-ported yet.
+ingest``, plus --device.  Lane containers (.jlv, made by
+``jsplayer_tpu_torch.transcode.transcode_to_lane``) take the lane path
+with or without ``--path lane``.  The other subcommands of the JAX package
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,8 +67,10 @@ def main(argv=None) -> int:
     a.add_argument("--path", default="kmv",
                    choices=("kmv", "bc", "kmv_sparse", "lane", "general",
                             "pallas"),
-                   help="SP device compose (kmv, bc, general and pallas "
-                        "are ported; the others raise NotImplementedError)")
+                   help="SP device compose (kmv, bc, lane, general and "
+                        "pallas are ported; kmv_sparse raises "
+                        "NotImplementedError); lane-container sources take "
+                        "lane whatever this says")
     a.add_argument("--downscale", type=int, default=1,
                    help="power-of-two box downsample in the model epilogue")
     a.add_argument("--model-only", action="store_true",

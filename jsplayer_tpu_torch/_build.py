@@ -117,6 +117,16 @@ def load() -> ctypes.CDLL:
                                                             p]
         lib.jsp_bc_compose.restype = i32
         lib.jsp_bc_compose.argtypes = [p, i64] * 7 + [i32, i32, i32, i32, p]
+        lib.jsp_lane_compose.restype = i32
+        lib.jsp_lane_compose.argtypes = ([p, i64, p, i64, i64, i32]
+                                         + [p, i64] * 6
+                                         + [i32, i32, i32, i32, p])
+        lib.jsp_rans_decode_aligned.restype = i32
+        lib.jsp_rans_decode_aligned.argtypes = [p, i64] * 4 + [i32, i32, i32,
+                                                               p]
+        lib.jsp_rans_decode_packed.restype = i32
+        lib.jsp_rans_decode_packed.argtypes = ([p, i64, i32] + [p, i64] * 3
+                                               + [i32, i32, i32, p])
         lib.jsp_ds2_pack.restype = i32
         lib.jsp_ds2_pack.argtypes = [p, i64, p, i64, i32, i32, i32, i32, p]
         lib.jsp_ds_probe.restype = i32

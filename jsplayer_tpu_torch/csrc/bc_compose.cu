@@ -52,6 +52,21 @@
 //     measured slower (experiments/bc_step.py, PERF.md);
 //   * the plane is read once, so it is loaded evict-first (__ldcs); prev
 //     stays in L2 for the moved reads.
+//
+// The lane instance (kLane, entry point jsp_lane_compose) is the step of
+// jsplayer_tpu/kernels/lane_recon.py: compose_frame_lane with the
+// where(changed, composed, prev) of its _scan_frames.  Its data pixels come
+// from the window's unique rows instead of a plane: a code-1 pixel inside
+// its rect takes rows[row_idx[y], x], the word as it is (no 0xFFFFFF mask,
+// as the reference's take is unmasked).  row_idx[y] in [-Ur, -1] wraps to
+// Ur + row_idx[y]; any other index outside [0, Ur) reads 0xFFFFFFFF
+// (jnp.take's fill).  rows may be the [:, :X] view of wider rows: it has a
+// row stride of its own.  The per-thread change is one row_idx load a row
+// that holds data pixels, then the row's words from that row (one 16-byte
+// load where the row stride keeps 16-byte alignment), loaded through the
+// read-only cache: every frame of a window gathers from the same rows.
+// The bound is bc's: 8 bytes a pixel, plus the commands and row_idx (4
+// bytes a row) of each changed stream.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,7 +90,9 @@ __device__ __forceinline__ void put4(int32_t* v, int4 a) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
 
-template <bool kVec>
+// kLane: `plane` is the rows [Ur, X] of row stride ru_rs, read through
+// row_idx (batch stride ri_bs); otherwise ru_rs, Ur and row_idx are unused.
+template <bool kVec, bool kLane>
 __global__ void __launch_bounds__(kTx * kTy) bc_compose_kernel(
     const int32_t* __restrict__ prev, long long prev_bs,
     const int32_t* __restrict__ plane, long long pl_bs,
@@ -84,7 +101,8 @@ __global__ void __launch_bounds__(kTx * kTy) bc_compose_kernel(
     int32_t* __restrict__ out, long long out_bs,
     const uint8_t* __restrict__ bcode, long long bc_bs,
     const uint8_t* __restrict__ rloc, long long rl_bs, bool rloc_word,
-    int Y, int X, int nbx, int K) {
+    int Y, int X, int nbx, int K, long long ru_rs, int Ur,
+    const int32_t* __restrict__ row_idx, long long ri_bs) {
   const int b = blockIdx.z;
   const int x0 = (blockIdx.x * kTx + threadIdx.x) * kPx;
   const int y0 = (blockIdx.y * kTy + threadIdx.y) * kRows;
@@ -145,7 +163,24 @@ __global__ void __launch_bounds__(kTx * kTy) bc_compose_kernel(
         if (keep >> j & 1u) v[r][j] = __ldg(pv + i + j);
     }
     if (!m) continue;
-    if (mode == 1) {
+    if (kLane && mode == 1) {
+      int ri = __ldg(row_idx + b * ri_bs + y);
+      if (ri < 0) ri += Ur;
+      if ((unsigned)ri >= (unsigned)Ur) {  // jnp.take's fill
+#pragma unroll
+        for (int j = 0; j < kPx; ++j)
+          if (m >> j & 1u) v[r][j] = -1;
+        continue;
+      }
+      const int32_t* src = pl + ri * ru_rs + x0;
+      if (kVec && m == 0xFu) {
+        put4(v[r], __ldg((const int4*)src));
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPx; ++j)
+          if (m >> j & 1u) v[r][j] = __ldg(src + j);
+      }
+    } else if (mode == 1) {
       if (kVec && m == 0xFu) {
         put4(v[r], __ldcs((const int4*)(pl + i)));
 #pragma unroll
@@ -214,12 +249,45 @@ extern "C" int jsp_bc_compose(
   const dim3 block(kTx, kTy);
   const unsigned gx = ((X + kPx - 1) / kPx + kTx - 1) / kTx;
   const unsigned gy = ((Y + kRows - 1) / kRows + kTy - 1) / kTy;
-  auto kernel = vec ? bc_compose_kernel<true> : bc_compose_kernel<false>;
+  auto kernel = vec ? bc_compose_kernel<true, false>
+                    : bc_compose_kernel<false, false>;
   // B > 65535 streams exceeds gridDim.z: the launch fails and is reported
   kernel<<<dim3(gx, gy, B), block, 0, (cudaStream_t)stream>>>(
       (const int32_t*)prev, prev_bs, (const int32_t*)plane, pl_bs,
       (const int32_t*)mvk, mvk_bs, (const uint8_t*)changed, chg_bs,
       (int32_t*)out, out_bs, (const uint8_t*)bcode, bc_bs,
-      (const uint8_t*)rloc, rl_bs, rloc_word, Y, X, nbx, K);
+      (const uint8_t*)rloc, rl_bs, rloc_word, Y, X, nbx, K, 0, 0, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// rows: [B, Ur, X] int32 with batch stride ru_bs and row stride ru_rs
+// (elements; each row's X words contiguous), Ur >= 1; row_idx: [B, Y] int32
+// with batch stride ri_bs and contiguous rows; the other arguments as
+// jsp_bc_compose's.
+extern "C" int jsp_lane_compose(
+    const void* prev, long long prev_bs, const void* rows, long long ru_bs,
+    long long ru_rs, int Ur, const void* row_idx, long long ri_bs,
+    const void* mvk, long long mvk_bs, const void* changed, long long chg_bs,
+    void* out, long long out_bs, const void* bcode, long long bc_bs,
+    const void* rloc, long long rl_bs, int B, int Y, int X, int K,
+    void* stream) {
+  if (B <= 0 || Y <= 0 || X <= 0) return 0;
+  if (K < 0) K = 0;
+  const bool vec = X % kPx == 0 && aligned(prev, 16) && aligned(rows, 16) &&
+                   aligned(out, 16) && prev_bs % kPx == 0 &&
+                   ru_bs % kPx == 0 && ru_rs % kPx == 0 && out_bs % kPx == 0;
+  const bool rloc_word = aligned(rloc, 4) && rl_bs % 4 == 0;
+  const int nbx = (X + 15) / 16;
+  const dim3 block(kTx, kTy);
+  const unsigned gx = ((X + kPx - 1) / kPx + kTx - 1) / kTx;
+  const unsigned gy = ((Y + kRows - 1) / kRows + kTy - 1) / kTy;
+  auto kernel = vec ? bc_compose_kernel<true, true>
+                    : bc_compose_kernel<false, true>;
+  kernel<<<dim3(gx, gy, B), block, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)prev, prev_bs, (const int32_t*)rows, ru_bs,
+      (const int32_t*)mvk, mvk_bs, (const uint8_t*)changed, chg_bs,
+      (int32_t*)out, out_bs, (const uint8_t*)bcode, bc_bs,
+      (const uint8_t*)rloc, rl_bs, rloc_word, Y, X, nbx, K, ru_rs, Ur,
+      (const int32_t*)row_idx, ri_bs);
   return (int)cudaGetLastError();
 }

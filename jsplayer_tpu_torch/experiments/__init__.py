@@ -16,6 +16,9 @@ CUDA card, holds every kernel against its plain twin (probes.py,
 kernels/sp_recon.py, kernels/rgb_convert.py) and prints times beside the
 card's name and power limit.  ``streams`` builds the bench-mix stream the
 fusion experiment decodes; ``kmv_step`` times the two kmv kernels at a
-B=4 random step, through the wrapper and as a CUDA graph.  Nothing here
-imports jax.
+B=4 random step, through the wrapper and as a CUDA graph; ``block_step``,
+``bc_step``, ``probe_step`` and ``lane_step`` do the same for the
+sp_motion.cu modes, bc_compose, block_transpose and the lane path's
+kernels (lane_compose and the two rANS decodes).  Nothing here imports
+jax.
 """

@@ -105,19 +105,18 @@ def _planes_overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return any(x < y + n and y < x + n for x in sa for y in sb)
 
 
-def _kmv_launch_args(what, prev, paycode, mvk, changed, out,
-                     pix_name="paycode") -> list:
-    """The CUDA branch's checks shared by kmv_compose, kmv_compose_ds2 and
-    bc_compose (whose pixel plane, `pix_name`, is the bc plane) → the
-    (pointer, batch stride) arguments prev, paycode, mvk, changed, out of
-    their entry points."""
-    cuda_launch_checks(what, prev, paycode, mvk, out)
+def step_checks(what, prev, mvk, changed, out, planes=()) -> None:
+    """The CUDA branch's checks of a compose step's frame arguments: prev,
+    out and each (name, plane) of `planes` row-contiguous int32 [B, Y, X]
+    on one card, mvk [B, K, 2] with contiguous [K, 2], changed [B] bool,
+    out apart from prev."""
+    cuda_launch_checks(what, prev, mvk, out, *(t for _, t in planes))
     if changed.device != prev.device or changed.dtype != torch.bool:
         raise TypeError(f"{what}: changed must be a bool tensor on the "
                         f"frames' device")
     B, Y, X = prev.shape
     K = mvk.shape[-2]
-    for name, t in (("prev", prev), (pix_name, paycode), ("out", out)):
+    for name, t in (("prev", prev), *planes, ("out", out)):
         if t.shape != (B, Y, X) or t.stride(-1) != 1 or t.stride(-2) != X:
             raise ValueError(f"{what}: {name} must be row-contiguous "
                              f"[{B}, {Y}, {X}], got {tuple(t.shape)} "
@@ -132,6 +131,31 @@ def _kmv_launch_args(what, prev, paycode, mvk, changed, out,
     if _planes_overlap(out, prev):
         raise ValueError(f"{what}: out must not alias prev (shifted "
                          f"reads would see written pixels)")
+
+
+def block_code_checks(what, prev, bcode, rloc) -> None:
+    """The CUDA branch's checks of per-block codes [B, NB] u8 and block-
+    local rects [B, NB, 4] u8 (contiguous rows) for frames prev [B, Y, X]."""
+    B, Y, X = prev.shape
+    nb = math.prod(block_grid(Y, X))
+    for name, t, tail in (("bcode", bcode, ()), ("rloc", rloc, (4,))):
+        if t.device != prev.device or t.dtype != torch.uint8:
+            raise TypeError(f"{what}: {name} must be a uint8 tensor on "
+                            f"the frames' device, got {t.dtype} on "
+                            f"{t.device}")
+        if tuple(t.shape) != (B, nb) + tail or t.stride(-1) != 1 or (
+                tail and t.stride(-2) != 4):
+            raise ValueError(f"{what}: {name} must be "
+                             f"{[B, nb, *tail]} with contiguous rows, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def _kmv_launch_args(what, prev, paycode, mvk, changed, out,
+                     pix_name="paycode") -> list:
+    """step_checks for kmv_compose, kmv_compose_ds2 and bc_compose (whose
+    pixel plane, `pix_name`, is the bc plane) → the (pointer, batch stride)
+    arguments prev, paycode, mvk, changed, out of their entry points."""
+    step_checks(what, prev, mvk, changed, out, [(pix_name, paycode)])
     args = []
     for t in (prev, paycode, mvk, changed, out):
         args += [t.data_ptr(), t.stride(0)]
@@ -374,13 +398,13 @@ def _neg32(v: int) -> int:
     return v if v == -2**31 else -v
 
 
-def compose_frame_bc_ref(prev, plane, bcode, rect, mvk) -> torch.Tensor:
-    """Plain twin of the reference's compose_frame_bc: prev/plane [Y, X]
-    int32 bit views, bcode [NB] u8, rect [NB, 4] u8 block-local, mvk
-    [K, 2] (mx, my) → [Y, X].  Its ops one for one: the row map, its row
-    expansion, then code 1 inside the rect takes plane & 0xFFFFFF, code 2+k
-    (k < K) inside the rect takes prev rolled by mvk[k] (wrapping), the
-    rest keeps prev."""
+def compose_codes_ref(prev, data, bcode, rect, mvk) -> torch.Tensor:
+    """The block-code compose of the reference's compose_frame_bc and
+    compose_frame_lane, its ops one for one: prev and data [Y, X] int32 bit
+    views, bcode [NB] u8, rect [NB, 4] u8 block-local, mvk [K, 2] (mx, my)
+    → [Y, X].  The row map and its row expansion, then code 1 inside the
+    rect takes data, code 2+k (k < K) inside the rect takes prev rolled by
+    mvk[k] (wrapping), the rest keeps prev."""
     Y, X = prev.shape
     nby, nbx = block_grid(Y, X)
     rowv = row_expand(bc_row_map(bcode, rect, nby, nbx, X), Y, X)
@@ -389,12 +413,19 @@ def compose_frame_bc_ref(prev, plane, bcode, rect, mvk) -> torch.Tensor:
     y2 = (rowv >> 16) & 0xFF
     ly = torch.arange(Y, dtype=torch.int32, device=prev.device)[:, None] & 15
     in_y = (ly >= y1) & (ly < y2)
-    out = torch.where((bt == 1) & in_y, plane & 0x00FFFFFF, prev)
+    out = torch.where((bt == 1) & in_y, data, prev)
     for k, (mx, my) in enumerate(mvk.tolist()):
         shifted = torch.roll(prev, shifts=(_neg32(my), _neg32(mx)),
                              dims=(0, 1))
         out = torch.where((bt == 2 + k) & in_y, shifted, out)
     return out
+
+
+def compose_frame_bc_ref(prev, plane, bcode, rect, mvk) -> torch.Tensor:
+    """Plain twin of the reference's compose_frame_bc: compose_codes_ref
+    whose data is plane & 0xFFFFFF (prev/plane [Y, X], bcode [NB], rect
+    [NB, 4], mvk [K, 2] → [Y, X])."""
+    return compose_codes_ref(prev, plane & 0x00FFFFFF, bcode, rect, mvk)
 
 
 def bc_compose_ref(prev, plane, bcode, rloc, mvk, changed) -> torch.Tensor:
@@ -424,18 +455,8 @@ def bc_compose(prev: torch.Tensor, plane: torch.Tensor, bcode: torch.Tensor,
         out = torch.empty_like(prev, memory_format=torch.contiguous_format)
     args = _kmv_launch_args("bc_compose", prev, plane, mvk, changed, out,
                             pix_name="plane")
+    block_code_checks("bc_compose", prev, bcode, rloc)
     B, Y, X = prev.shape
-    nb = math.prod(block_grid(Y, X))
-    for name, t, tail in (("bcode", bcode, ()), ("rloc", rloc, (4,))):
-        if t.device != prev.device or t.dtype != torch.uint8:
-            raise TypeError(f"bc_compose: {name} must be a uint8 tensor on "
-                            f"the frames' device, got {t.dtype} on "
-                            f"{t.device}")
-        if tuple(t.shape) != (B, nb) + tail or t.stride(-1) != 1 or (
-                tail and t.stride(-2) != 4):
-            raise ValueError(f"bc_compose: {name} must be "
-                             f"{[B, nb, *tail]} with contiguous rows, got "
-                             f"{tuple(t.shape)} strides {t.stride()}")
     if B and Y and X:
         lib = _build.load()
         with torch.cuda.device(prev.device):

@@ -18,6 +18,12 @@ windows.
     commands (bts/mv/rect) and decoded frame (payload); the device runs the
     block-command scan, csrc/sp_motion.cu in its general or fused mode.
     As in the reference, these paths ignore still_elision and emit_frames.
+  * ``"lane"``: lane containers (codecs/lane_format, made by
+    transcode.transcode_to_lane), found by their magic without the flag
+    too.  The host only slices the parsed windows into shared buckets; the
+    device builds each window's unique rows (raw payload bytes, or the rANS
+    decode of csrc/rans_lanes.cu) and scans with csrc/bc_compose.cu's lane
+    instance (kernels/lane_recon), still-elided or dense.
 
 The window dicts have the reference's keys, shapes and meaning.  u32
 planes (``frames_u32``) are int32 tensors holding the u32 bits (see
@@ -25,16 +31,16 @@ device.py); ``outmap`` stays a numpy array as in the reference.
 
 What the reference does beyond these paths raises NotImplementedError
 naming its ROADMAP.md queue item: MSVideo1, other sp_device_path values,
-a mesh, lane containers.
+a mesh.
 
-StreamReader, _StreamingFrames, _trim_window, _oracle_decode_step and the
-host-buffer pool are copies of the reference's: its module imports jax at
-the top, which this package never does.
+StreamReader, _StreamingFrames, _trim_window, _oracle_decode_step, the
+host-buffer pool and _pow2ceil are copies of the reference's: its module
+imports jax at the top, which this package never does.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -48,9 +54,8 @@ from ..kernels import sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
 from ..kernels.sp_motion_pallas import decode_batch_fused
 
-_LANE_MAGIC = b"JLV1"  # codecs/lane_format.py _MAGIC (not imported: jax)
 #: sp_device_path values the port runs; the others raise NotImplementedError
-PORTED_SP_PATHS = ("kmv", "bc", "general", "pallas")
+PORTED_SP_PATHS = ("kmv", "bc", "general", "pallas", "lane")
 
 # Process-wide host-buffer pool: window buffers are hundreds of MB and fresh
 # pages fault in slowly, so a new pipeline re-allocating them costs more
@@ -101,6 +106,12 @@ def _trim_window(out: dict, n: int) -> dict:
     return out
 
 
+def _pow2ceil(n: int) -> int:
+    """Smallest power of two >= max(n, 1): the reference's bucketing unit
+    (its jit keys), kept so the lane windows' shapes equal its own."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
 def _oracle_decode_step(dec, src: bytes, isk: bool, X: int, Y: int):
     """One pure-Python host-stage decode step: run the oracle with command
     capture → (significant, capture dict).  Raises like the oracle does on
@@ -136,7 +147,8 @@ class IngestConfig:
     insignificant_lines: int = 0
     # "kmv" (kmv transport), "bc" (block-command transport), "general" or
     # "pallas" (captured block commands; both ignore still_elision and
-    # emit_frames)
+    # emit_frames), "lane" (lane containers; chosen without the flag when
+    # every source is one)
     sp_device_path: str = "kmv"
     kmv_k: int = 2
     sparse_lane_payload: bool = False
@@ -258,25 +270,41 @@ class _StreamingFrames:
 
 class VideoIngestPipeline:
     """Iterate model-tensor windows over a batch of same-geometry
-    ScreenPressor streams."""
+    ScreenPressor streams or lane containers."""
 
     def __init__(self, sources: Sequence[ByteSource],
                  config: Optional[IngestConfig] = None):
         self.cfg = config or IngestConfig()
         self.device = resolve_device(self.cfg.device)
+        # auto-detect lane-container sources (4-byte magic) so ingest works
+        # on .jlv files without an explicit sp_device_path="lane"
+        if self.cfg.sp_device_path != "lane" and sources:
+            from ..codecs import lane_format
+
+            try:
+                heads = [lane_format.is_lane_container(s.read_range(0, 4))
+                         for s in sources]
+            except Exception:
+                heads = [False]
+            if all(heads):
+                self.cfg = replace(self.cfg, sp_device_path="lane")
+            elif any(heads):
+                raise ValueError(
+                    "batch mixes lane containers and AVIs — transcode or "
+                    "split the batch")
         if self.cfg.sp_device_path not in PORTED_SP_PATHS:
             raise NotImplementedError(
                 f"sp_device_path={self.cfg.sp_device_path!r} is not ported "
-                f"yet (ROADMAP.md queue 1: lane item 10, kmv_sparse item "
-                f"11)")
+                f"yet (ROADMAP.md queue 1: kmv_sparse item 11)")
         if self.cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported yet (ROADMAP.md queue 1 "
                 "item 13)")
-        if any(s.read_range(0, 3)[:4] == _LANE_MAGIC for s in sources):
-            raise NotImplementedError(
-                "lane containers are not ported yet (ROADMAP.md queue 1 "
-                "item 10)")
+        self._model_dtype = getattr(torch, self.cfg.model_dtype)
+        self._carry: Optional[torch.Tensor] = None
+        if self.cfg.sp_device_path == "lane":
+            self._init_lane(sources)
+            return
         self.readers = [StreamReader(s, streaming=self.cfg.streaming)
                         for s in sources]
         info0 = self.readers[0].info
@@ -294,7 +322,6 @@ class VideoIngestPipeline:
         # 16bpp ScreenPressor decodes to 5-bit channels (scaled <<3 for
         # the model, Manager.hx:363-370)
         self._bpp16 = info0.bpp == 16
-        self._model_dtype = getattr(torch, self.cfg.model_dtype)
         #: per-stream AudioTrack (MP3 sections, PTS, time_loaded watermark)
         self.audio_tracks = [r.audio_track for r in self.readers]
         # per-stream failure quarantine: a malformed frame freezes that
@@ -304,7 +331,6 @@ class VideoIngestPipeline:
         #: which elision layout each window used (CONCAT keyframe-led,
         #: PADDED mid-GOP)
         self.stats = {"concat_windows": 0, "padded_windows": 0}
-        self._carry: Optional[torch.Tensor] = None
 
     def _window_starts(self) -> list[int]:
         if self.cfg.frame_range is not None:
@@ -372,6 +398,9 @@ class VideoIngestPipeline:
         launches return at once), then the host stage of window t+1 runs
         while the card works; window t is yielded after that.  The carry
         stays on the device."""
+        if self.cfg.sp_device_path == "lane":
+            yield from self._iter_lane()
+            return
         W = self.cfg.window
         pending = None
         try:
@@ -841,6 +870,258 @@ class VideoIngestPipeline:
         if self.cfg.emit_model_input:
             out["model_input"] = self._model_tensors(flat)
         return out
+
+    # -- lane containers -------------------------------------------------------
+
+    def _init_lane(self, sources) -> None:
+        """Lane-container batch: parse headers, check shared geometry."""
+        from ..codecs import lane_format
+
+        if self.cfg.streaming:
+            # containers are meta-deflated and small; whole-blob load IS
+            # the residency model — reject the flag instead of silently
+            # ignoring it
+            raise ValueError("sp_device_path='lane' loads whole containers; "
+                             "streaming=True is the long-AVI mode")
+        self.containers = []
+        for s in sources:
+            data = s.read_range(0)
+            if not lane_format.is_lane_container(data):
+                raise ValueError(
+                    "sp_device_path='lane' needs lane-container sources "
+                    "(transcode.transcode_to_lane), not AVIs")
+            self.containers.append(lane_format.container_from_bytes(data))
+        c0 = self.containers[0]
+        for c in self.containers:
+            assert (c.X, c.Y, c.K, c.n_lanes, c.window) == (
+                c0.X, c0.Y, c0.K, c0.n_lanes, c0.window), \
+                "lane batch must share geometry, K, lanes, and window size"
+        self.info = VideoInfo(width=c0.X, height=c0.Y, bpp=c0.bpp,
+                              fps=c0.fps, nframes=c0.n_frames,
+                              codec=CodecType.SCREENPRESSOR)
+        self.nframes = max(c.n_frames for c in self.containers)
+        self._bpp16 = c0.bpp == 16
+        # MP3 audio passthrough: AudioTracks rebuilt from the containers'
+        # raw sound streams (the Mp3Parser → sections wiring the AVI
+        # loader uses)
+        self.audio_tracks = [self._lane_audio(c) for c in self.containers]
+        self.quarantined = set()
+        self.quarantine_errors = []
+
+    @staticmethod
+    def _lane_audio(container):
+        if not container.audio:
+            return None
+        from ..av.audio_track import AudioTrack
+        from ..av.mp3 import Mp3Parser
+        from ..core.chunkbuffer import ChunkBuffer
+
+        track = AudioTrack()
+        buf = ChunkBuffer()
+        parser = Mp3Parser(
+            buf, lambda start, data, last: track.add_section(
+                parser.sections[-1]))
+        buf.add_chunk(container.audio)
+        parser.parse()
+        parser.on_data_end()
+        parser.parse()
+        return track
+
+    def _lane_window_starts(self):
+        """→ (true window lengths, their frame bases, first window, end
+        window).  Streams of a batch must share window boundaries (the
+        [B, T] batching keeps one timeline); frame_range starts at the
+        latest window ≤ t0 that is a restart in every stream (the
+        container's keyframe unit) and ends once t1 is covered."""
+        Tw = self.containers[0].window
+        n_windows = max(len(c.windows) for c in self.containers)
+        Ts: list[int] = []
+        for wj in range(n_windows):
+            tlen = None
+            for c in self.containers:
+                if wj < len(c.windows):
+                    if tlen is None:
+                        tlen = c.windows[wj].T
+                    elif c.windows[wj].T != tlen:
+                        raise ValueError(
+                            "lane batch streams have mismatched window "
+                            f"boundaries at window {wj}")
+            Ts.append(Tw if tlen is None else tlen)
+        bases = np.concatenate([[0], np.cumsum(Ts)]).astype(int)
+        wi0, wi_end = 0, n_windows
+        if self.cfg.frame_range is not None:
+            t0, t1 = self.cfg.frame_range
+            tt0 = max(0, min(int(t0), self.nframes - 1))
+            want = max(0, int(np.searchsorted(bases, tt0, side="right")) - 1)
+            wi0 = 0
+            for wi in range(want, -1, -1):
+                if all(wi < len(c.windows) and c.windows[wi].restart
+                       for c in self.containers):
+                    wi0 = wi
+                    break
+            tt1 = max(t0 + 1, int(t1))
+            wi_end = min(n_windows,
+                         int(np.searchsorted(bases, tt1, side="left")))
+        return Ts, bases, wi0, wi_end
+
+    def _lane_window(self, wi: int, T: int, raw: bool) -> dict:
+        """Window wi of every stream, padded to shared buckets → host arrays:
+        btype [B, Tpad, NB], rect, mvk, row_idx [B, Tpad, Y], changed
+        [B, Tpad], sig [B, T], row_table [B, ur_pad, ncol], payload [B,
+        u_pad, 3, 128] (raw) or refills [B, steps, N, 2], states, freq
+        (rans), init planes (rans restart windows, else None), u_pad.  Tpad,
+        u_pad, ur_pad and steps are powers of two (steps at least the
+        widest window's); pad frames are unchanged stills, pad rows and
+        units are never referenced, and a stream without window wi passes
+        its carry through."""
+        from ..codecs.lane_format import plane_cols
+        from ..kernels import rans_lanes as _rl
+
+        c0 = self.containers[0]
+        B = len(self.containers)
+        Y, X, K, N = c0.Y, c0.X, c0.K, c0.n_lanes
+        ncol = plane_cols(X) // 128
+        nb = ((X + 15) // 16) * ((Y + 15) // 16)
+        wins = [c.windows[wi] if wi < len(c.windows) else None
+                for c in self.containers]
+        Tpad = _pow2ceil(T)
+        h = dict(btype=np.zeros((B, Tpad, nb), dtype=np.uint8),
+                 rect=np.zeros((B, Tpad, nb, 4), dtype=np.uint8),
+                 mvk=np.zeros((B, Tpad, K, 2), dtype=np.int32),
+                 row_idx=np.zeros((B, Tpad, Y), dtype=np.int32),
+                 changed=np.zeros((B, Tpad), dtype=bool),
+                 sig=np.zeros((B, T), dtype=bool))
+        rtabs = [None] * B
+        for b, w in enumerate(wins):
+            if w is None:
+                continue
+            h["btype"][b, : w.T] = w.btype
+            h["rect"][b, : w.T] = w.rect
+            h["mvk"][b, : w.T] = w.mvk
+            rtabs[b], h["row_idx"][b, : w.T] = w.row_index(Y, ncol)
+            h["changed"][b, : w.T] = w.changed
+            h["sig"][b, : w.T] = w.signif
+        ur_pad = _pow2ceil(max((rt.shape[0] for rt in rtabs
+                                if rt is not None), default=1))
+        h["row_table"] = np.zeros((B, ur_pad, ncol), dtype=np.int32)
+        for b, rt in enumerate(rtabs):
+            if rt is not None:
+                h["row_table"][b, : rt.shape[0]] = rt
+        h["u_pad"] = u_pad = _pow2ceil(max(
+            w.n_units if w is not None else 0 for w in wins))
+        if raw:
+            h["payload"] = np.zeros((B, u_pad, 3, 128), dtype=np.uint8)
+            for b, w in enumerate(wins):
+                if w is not None and w.n_units:
+                    h["payload"][b, : w.n_units] = w.payload
+        else:
+            need_steps = -(-3 * u_pad * 128 // N)
+            steps = max(_pow2ceil(need_steps),
+                        max((w.refills.shape[0] for w in wins
+                             if w is not None), default=1))
+            h["refills"] = np.zeros((B, steps, N, 2), dtype=np.uint8)
+            h["states"] = np.zeros((B, N), dtype=np.uint32)
+            # a valid table for absent rows: the kernel needs one
+            h["freq"] = np.ones((B, 256), dtype=np.int32)
+            h["freq"][:, 0] += _rl.PROB_SCALE - 256
+            for b, w in enumerate(wins):
+                if w is None:
+                    continue
+                h["refills"][b, : w.refills.shape[0]] = w.refills
+                h["states"][b] = w.states
+                h["freq"][b] = w.freq
+        h["init"] = None
+        if any(w is not None and w.init_plane is not None for w in wins):
+            h["init"] = [None if w is None else w.init_plane for w in wins]
+        return h
+
+    def _iter_lane(self) -> Iterator[dict]:
+        """Device-entropy ingest: per window, pad streams to shared buckets
+        (_lane_window) and run the lane decode of all streams on the device
+        (kernels/lane_recon): the rows, then one lane_compose launch a scan
+        step for all B.  The host's only per-frame work is array slicing;
+        the carry stays on the device.  The reference's gop-axis grouping
+        needs a mesh (ROADMAP.md item 13), so every window is a group of
+        one."""
+        from ..kernels import lane_recon
+
+        c0 = self.containers[0]
+        B = len(self.containers)
+        Y, X = c0.Y, c0.X
+        windows = [w for c in self.containers for w in c.windows]
+        raw = any(w.raw_mode for w in windows)
+        if raw and not all(w.raw_mode for w in windows):
+            raise ValueError("lane batch mixes raw and rans payload windows")
+        Ts, bases, wi, wi_end = self._lane_window_starts()
+        pending = None
+        while wi < wi_end:
+            T = Ts[wi]
+            h = self._lane_window(wi, T, raw)
+            init = self._carry_init(B)
+            # rans mode: window-leading keyframes ride as raw init planes
+            # (the scan's frame 0 is an all-copy passthrough): those
+            # streams start from their plane, on the device
+            if h["init"] is not None:
+                mask = np.array([p is not None for p in h["init"]])
+                planes = np.stack([np.zeros((Y, X), np.uint32) if p is None
+                                   else p for p in h["init"]])
+                init = torch.where(self._put(mask)[:, None, None],
+                                   self._put(planes), init)
+            btype, rect, mvk, row_idx = (h[k] for k in (
+                "btype", "rect", "mvk", "row_idx"))
+            changed = h["changed"]
+            # still-elision: stills never enter the lane scan (the flat row
+            # stack + outmap contract of _kmv_elided; -1 = the window's
+            # carry-in frame)
+            outmap = None
+            if self.cfg.still_elision:
+                (btype, rect, mvk, row_idx), changed, outmap = \
+                    sp_recon.compact_arrays_batch(
+                        (btype, rect, mvk, row_idx), changed)
+                cpad = btype.shape[1]
+                outmap = np.where(
+                    outmap >= 0,
+                    outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
+                    -1).astype(np.int32)[:, :T]
+            if changed.shape[1] == 0:  # all streams all-stills
+                out = {"start_frame": int(bases[wi]),
+                       "significant": self._put(h["sig"]),
+                       "outmap": outmap,
+                       "frames_u32": torch.zeros((0, Y, X), dtype=torch.int32,
+                                                 device=self.device)}
+            else:
+                cmds = [self._put(a) for a in (btype, rect, mvk, h["row_table"],
+                                               row_idx, changed)]
+                if raw:
+                    frames = lane_recon.decode_batch_raw(
+                        init, self._put(h["payload"]), *cmds)
+                else:
+                    frames = lane_recon.decode_batch_lane(
+                        init, *(self._put(h[k]) for k in (
+                            "refills", "states", "freq")), *cmds, h["u_pad"])
+                self._carry = frames[:, -1]
+                out = {"start_frame": int(bases[wi]),
+                       "significant": self._put(h["sig"])}
+                if outmap is not None:
+                    out["outmap"] = outmap
+                    flat = frames.reshape((-1,) + frames.shape[2:])
+                    if self.cfg.emit_frames:
+                        out["frames_u32"] = flat
+                    if self.cfg.emit_model_input:
+                        out["model_input"] = self._model_tensors(flat)
+                else:
+                    # ragged (keyframe-snapped) windows keep their real
+                    # frames
+                    out["frames_u32"] = frames[:, :T]
+                    if self.cfg.emit_model_input:
+                        out["model_input"] = self._model_tensors(
+                            out["frames_u32"])
+            if pending is not None:
+                yield pending
+            pending = out
+            wi += 1
+        if pending is not None:
+            yield pending
 
     # -- shared ----------------------------------------------------------------
 

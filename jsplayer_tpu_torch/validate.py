@@ -15,12 +15,22 @@ encoder, decodes it on the host, and runs each leg through the port on
                        (csrc/kmv_compose.cu)
   bc_parity            native bc transport, then decode_sequence_bc
                        (csrc/bc_compose.cu)
+  lane_raw_parity      transcode_to_lane (raw payload) of the stream, then
+                       lane_recon.decode_window_raw (csrc/bc_compose.cu,
+                       lane instance); the window must use unit dedup
+  lane_rans_parity     the same with the rans payload through
+                       decode_window_lane (csrc/rans_lanes.cu, then the
+                       lane instance)
+  lane_ragged_parity   a 14-frame stream with keyframes every 5 frames,
+                       transcoded into keyframe-snapped (ragged) windows,
+                       through VideoIngestPipeline(sp_device_path="lane")
 
-Every leg but mxu_parity holds each decoded frame against the source
-frame.  It prints one JSON line {leg: bool} and exits 1 when a leg is
-False.  Nothing is caught: a leg that fails to run raises.  The script's
-other legs (kmv_sparse, lane) wait for their paths (ROADMAP.md queue 1);
-its bench and its TPU_RESULTS.md append are not ported.
+Every leg but mxu_parity holds each decoded frame against the source frame
+(the lane legs on the low 24 bits, as the script does).  It prints one
+JSON line {leg: bool} and exits 1 when a leg is False.  Nothing is caught:
+a leg that fails to run raises.  The script's kmv_sparse leg waits for
+its path (ROADMAP.md queue 1 item 11); its bench and its TPU_RESULTS.md
+append are not ported.
 """
 
 from __future__ import annotations
@@ -33,21 +43,27 @@ import numpy as np
 import torch
 
 from . import native
+from .codecs import lane_format
+from .core.source import MemorySource
 from .device import resolve_device, to_device, torch_to_u32
+from .encode.avi_mux import mux_avi
 from .encode.sp_enc import ScreenPressorEncoder, pack_rgb
-from .kernels import sp_recon
+from .kernels import lane_recon, sp_recon
 from .kernels.sp_motion_mxu import compose_frame_mxu_safe
 from .kernels.sp_motion_pallas import decode_sequence_fused
 from .pipeline.batch import stack_sp_commands
+from .transcode import transcode_to_lane
 
 X, Y = 256, 128
 K = 2
 
 
-def make_stream() -> tuple[list[bytes], list[np.ndarray]]:
-    """tpu_validate.py's stream → (frame chunks, source frames [Y*X] u32)."""
+def make_stream(rng=None) -> tuple[list[bytes], list[np.ndarray]]:
+    """tpu_validate.py's stream → (frame chunks, source frames [Y*X] u32).
+    The script draws its paint colours from rng = default_rng(0), and its
+    ragged stream (make_ragged_stream) goes on drawing from the same rng."""
     enc = ScreenPressorEncoder(4, X, Y)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0) if rng is None else rng
     f = np.full((Y, X), pack_rgb(7, 7, 7), dtype=np.uint32).reshape(-1)
     streams, golds = [enc.encode_i(f)], [f]
     for t in range(6):
@@ -62,13 +78,36 @@ def make_stream() -> tuple[list[bytes], list[np.ndarray]]:
     return streams, golds
 
 
+def make_ragged_stream(rng) -> tuple[bytes, list[np.ndarray]]:
+    """tpu_validate.py's ragged-window stream: 14 frames, keyframes every 5,
+    paints on two frames of three → (AVI bytes, source frames [Y*X])."""
+    enc = ScreenPressorEncoder(4, X, Y)
+    fr = np.full((Y, X), pack_rgb(5, 6, 7), dtype=np.uint32)
+    streams, golds, keys = [], [], []
+    for t in range(14):
+        fr = fr.copy()
+        if t % 3 != 2:
+            fr[(t % 5) * 8: (t % 5) * 8 + 8, 8:40] = pack_rgb(
+                *rng.integers(0, 256, 3))
+        isk = t % 5 == 0
+        if isk:
+            enc = ScreenPressorEncoder(4, X, Y)
+        flat = fr.reshape(-1).copy()
+        streams.append(enc.encode_i(flat) if isk else enc.encode_p(flat))
+        golds.append(flat)
+        keys.append(isk)
+    return mux_avi(streams, X, Y, 24, codec="SPV4", keyflags=keys), golds
+
+
 class Legs:
     """The stream, its host decode and the device; one method a leg, each
     → bool."""
 
     def __init__(self, device):
         self.dev = resolve_device(device)
-        self.streams, self.golds = make_stream()
+        rng = np.random.default_rng(0)
+        self.streams, self.golds = make_stream(rng)
+        self.ragged_avi, self.ragged_golds = make_ragged_stream(rng)
         self.cmds = {k: v[0, 0] for k, v in
                      stack_sp_commands([self.streams], X, Y).items()}
         if not native.available():
@@ -134,9 +173,66 @@ class Legs:
             self.zero(), *(self.put(bc[k][0]) for k in (
                 "plane", "bcode", "rloc", "mvk", "changed"))))
 
+    def lane_window(self, mode: str):
+        """The stream's single lane window in payload `mode` → (window,
+        row_table, row_idx, commands btype/rect/mvk/.../changed on the
+        device)."""
+        avi = mux_avi(self.streams, X, Y, 24, codec="SPV4",
+                      keyflags=[t == 0 for t in range(len(self.streams))])
+        cont = lane_format.container_from_bytes(transcode_to_lane(
+            avi, window=len(self.streams), K=K, payload=mode))
+        w = cont.windows[0]
+        rt, ri = w.row_index(Y, lane_format.plane_cols(X) // 128)
+        return w, [self.put(a) for a in (w.btype, w.rect, w.mvk, rt, ri,
+                                         w.changed)]
+
+    @staticmethod
+    def matches24(got, golds) -> bool:
+        """Frames got (u32, [T, ...]) equal golds on their low 24 bits."""
+        return len(got) == len(golds) and all(
+            np.array_equal(got[t].reshape(-1) & 0x00FFFFFF, g & 0x00FFFFFF)
+            for t, g in enumerate(golds))
+
+    def lane_raw_parity(self) -> bool:
+        w, cmds = self.lane_window("raw")
+        frames = lane_recon.decode_window_raw(self.zero(),
+                                              self.put(w.payload), *cmds)
+        return (self.matches24(torch_to_u32(frames), self.golds)
+                and w.unit_idx is not None)
+
+    def lane_rans_parity(self) -> bool:
+        w, cmds = self.lane_window("rans")
+        init = (self.put(w.init_plane) if w.init_plane is not None
+                else self.zero())
+        frames = lane_recon.decode_window_lane(
+            init, self.put(w.refills), self.put(w.states), self.put(w.freq),
+            *cmds, U=w.n_units)
+        return self.matches24(torch_to_u32(frames), self.golds)
+
+    def lane_ragged_parity(self) -> bool:
+        """Keyframe-snapped windows of several lengths through the whole
+        lane ingest (Tpad bucketing, frame bases by prefix sums)."""
+        from .pipeline.ingest import IngestConfig, VideoIngestPipeline
+
+        cont = transcode_to_lane(self.ragged_avi, window=4, K=K)
+        lengths = {w.T for w in lane_format.container_from_bytes(
+            cont).windows}
+        pipe = VideoIngestPipeline(
+            [MemorySource(cont)],
+            IngestConfig(sp_device_path="lane", device=str(self.dev)))
+        got = {}
+        for batch in pipe:
+            arr = torch_to_u32(batch["frames_u32"])
+            for t in range(arr.shape[1]):
+                got[batch["start_frame"] + t] = arr[0, t]
+        return (len(lengths) > 1 and sorted(got) == list(range(len(
+            self.ragged_golds))) and self.matches24(
+                [got[t] for t in sorted(got)], self.ragged_golds))
+
 
 LEGS = ("xla_parity", "pallas_patch_parity", "mxu_parity",
-        "kmv_native_parity", "bc_parity")
+        "kmv_native_parity", "bc_parity", "lane_raw_parity",
+        "lane_rans_parity", "lane_ragged_parity")
 
 
 def run(device="cuda") -> dict[str, bool]:

@@ -68,9 +68,14 @@ def case_commands(name):
     """numpy inputs of the case → (prev u32 [B, Y, X], plane u32 [B, Y, X],
     bcode u8 [B, NB], rloc u8 [B, NB, 4], mvk int32 [B, K, 2], changed [B]
     bool), made from a seed the name gives."""
-    c = spec(name)
+    return commands_of(spec(name), np.random.default_rng(
+        zlib.crc32(name.encode())))
+
+
+def commands_of(c, rng):
+    """case_commands of a spec dict c (BC_CASES' keys, all given), drawn
+    from rng (which the lane cases go on drawing from)."""
     B, Y, X, K = c["B"], c["Y"], c["X"], c["K"]
-    rng = np.random.default_rng(zlib.crc32(name.encode()))
     nb = ((Y + 15) // 16) * ((X + 15) // 16)
     bcode = rng.integers(0, K + 4, (B, nb))
     bcode = np.where(rng.random((B, nb)) < 0.05, 255, bcode)

@@ -17,6 +17,7 @@ import torch
 from test_torch_bc_cases import BC_CASES, run_bc_case
 from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
     rows_view
+from test_torch_lane_cases import LANE_CASES, run_lane_case
 
 pytestmark = pytest.mark.cuda
 
@@ -499,3 +500,147 @@ def test_validate_legs_on_the_card(dev):
     from jsplayer_tpu_torch import validate
 
     assert validate.run("cuda") == {leg: True for leg in validate.LEGS}
+
+
+@pytest.mark.parametrize("case", sorted(LANE_CASES))
+def test_lane_kernel_cases(dev, case):
+    """csrc/bc_compose.cu's lane instance against its plain twin, bit for
+    bit, on the shapes, layouts, commands and row indices that pick each
+    path of the kernel (tests/test_torch_lane_cases.py LANE_CASES): X % 4
+    != 0, odd Y and X, offset and odd-stride views, wide and odd-stride
+    rows, indices that wrap or fall outside the rows, top-byte rows, split
+    and whole rects, codes past the motion slots, wrapping vectors, K = 0
+    and 8, unchanged streams with garbage commands, B = 1 and 5."""
+    from jsplayer_tpu_torch.kernels.lane_recon import lane_compose_ref
+
+    prev, args, chg, got = run_lane_case(case, dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lane_compose_ref(prev, *args, chg),
+                               rtol=0, atol=0)
+
+
+def test_lane_kernel_rejects_aliased_out_and_wrong_types(dev):
+    from jsplayer_tpu_torch.kernels.lane_recon import lane_compose
+
+    prev = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
+    rows = torch.zeros((2, 3, 16), dtype=torch.int32, device=dev)
+    ri = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    bcode = torch.zeros((2, 1), dtype=torch.uint8, device=dev)
+    rloc = torch.zeros((2, 1, 4), dtype=torch.uint8, device=dev)
+    mvk = torch.zeros((2, 2, 2), dtype=torch.int32, device=dev)
+    chg = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="alias"):
+        lane_compose(prev, rows, ri, bcode, rloc, mvk, chg, out=prev)
+    with pytest.raises(TypeError, match="uint8"):
+        lane_compose(prev, rows, ri, bcode.int(), rloc, mvk, chg)
+    with pytest.raises(ValueError, match="row_idx"):
+        lane_compose(prev, rows, ri[:, :8], bcode, rloc, mvk, chg)
+    with pytest.raises(IndexError):
+        lane_compose(prev, rows[:, :0], ri, bcode, rloc, mvk, chg)
+
+
+def rans_inputs(B, N, steps, L, seed, dists=("skewed", "peaked", "pad")):
+    """Random u32 states (0 and >= 2^31 among them), refills and lane bytes,
+    a table a stream from the uniform/skewed/peaked/pad set, on the CPU."""
+    from test_torch_rans_cases import tables, u32_states
+
+    rng = np.random.default_rng(seed)
+    freq = np.stack([tables(dists[b % len(dists)]) for b in range(B)])
+    states = np.stack([u32_states(rng, N) for _ in range(B)])
+    refills = rng.integers(0, 256, (B, steps, N, 2), dtype=np.uint8)
+    lanes = rng.integers(0, 256, (B, N, L), dtype=np.uint8)
+    return (torch.from_numpy(refills), torch.from_numpy(lanes),
+            torch.from_numpy(states.view(np.int32)), torch.from_numpy(freq))
+
+
+@pytest.mark.parametrize("B,N,steps,L", [
+    (1, 1, 9, 3), (3, 8, 17, 0), (2, 64, 40, 11), (4, 130, 33, 25),
+    (4, 4096, 70, 60)])
+def test_rans_kernels_random(dev, B, N, steps, L):
+    """Both decodes against their twins on random u32 states, refills and
+    lane bytes (reads past a lane's bytes; L = 0), N not a multiple of the
+    block, steps not a multiple of the kernel's look-ahead."""
+    from jsplayer_tpu_torch.kernels.rans_lanes import (
+        rans_decode_aligned, rans_decode_aligned_ref, rans_decode_packed,
+        rans_decode_packed_ref)
+
+    refills, lanes, states, freq = rans_inputs(B, N, steps, L, B * N + L)
+    before = (rans_decode_aligned.launches, rans_decode_packed.launches)
+    got_a = rans_decode_aligned(*(t.to(dev) for t in (refills, states, freq)))
+    got_p = rans_decode_packed(*(t.to(dev) for t in (lanes, states, freq)),
+                               steps)
+    torch.cuda.synchronize()
+    assert (rans_decode_aligned.launches, rans_decode_packed.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got_a.cpu(), rans_decode_aligned_ref(refills, states,
+                                                            freq))
+    assert torch.equal(got_p.cpu(), rans_decode_packed_ref(lanes, states,
+                                                           freq, steps))
+
+
+def test_rans_aligned_kernel_on_odd_refill_addresses(dev):
+    """Refills that start one byte into their buffer take the byte-load
+    instance; the result is the same."""
+    from jsplayer_tpu_torch.kernels.rans_lanes import (
+        rans_decode_aligned, rans_decode_aligned_ref)
+
+    refills, _, states, freq = rans_inputs(2, 96, 21, 1, 7)
+    buf = torch.zeros(refills.numel() + 1, dtype=torch.uint8, device=dev)
+    odd = torch.as_strided(buf, refills.shape, refills.stride(), 1)
+    odd.copy_(refills.to(dev))
+    assert odd.data_ptr() % 2 == 1
+    got = rans_decode_aligned(odd, states.to(dev), freq.to(dev))
+    assert torch.equal(got.cpu(), rans_decode_aligned_ref(refills, states,
+                                                          freq))
+
+
+@pytest.mark.parametrize("n_lanes", [1, 8, 64, 128])
+@pytest.mark.parametrize("dist", ["uniform", "skewed", "peaked"])
+def test_rans_kernels_on_the_grid(dev, n_lanes, dist):
+    """The round-trip helpers on the card recover the symbols on the grid
+    of tests/test_rans_lanes.py, as the twins do."""
+    from jsplayer_tpu_torch.kernels import rans_lanes as R
+    from test_torch_rans_cases import seed_of, symbols
+
+    syms = symbols(dist, 3000, seed_of("cuda", n_lanes, dist))
+    freq = R.build_freq_table(syms)
+    lane_bytes, states, ns = R.encode_lanes(syms, freq, n_lanes)
+    for fn in (R.roundtrip_decode, R.roundtrip_decode_aligned):
+        np.testing.assert_array_equal(
+            fn(lane_bytes, states, freq, ns, n_lanes, device=dev), syms)
+
+
+def lane_containers(payload, n=3):
+    from jsplayer_tpu_torch.transcode import transcode_to_lane
+
+    return [transcode_to_lane(stills_avi(s, nframes=14), window=5, K=2,
+                              payload=payload) for s in (3, 7, 11)[:n]]
+
+
+@pytest.mark.parametrize("payload", ["raw", "rans"])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(still_elision=True, model_downscale=2),
+    dict(emit_frames=False, model_downscale=2)])
+def test_lane_ingest_cuda_matches_cpu(dev, payload, kw):
+    """The lane path on the card against the same pipeline on the CPU (the
+    plain twins): dense, elided with model tensors, model-only."""
+    from jsplayer_tpu_torch.core.source import MemorySource
+    from jsplayer_tpu_torch.kernels.lane_recon import lane_compose
+    from jsplayer_tpu_torch.pipeline import ingest as P
+
+    conts = lane_containers(payload)
+    outs = {}
+    for d in ("cpu", "cuda"):
+        before = lane_compose.launches
+        pipe = P.VideoIngestPipeline([MemorySource(c) for c in conts],
+                                     P.IngestConfig(device=d, **kw))
+        outs[d] = list(pipe)
+        assert (lane_compose.launches > before) == (d == "cuda")
+    assert len(outs["cpu"]) == len(outs["cuda"]) > 1
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert a.keys() == b.keys()
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, b[k].cpu()), k
+            else:
+                np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))

@@ -57,6 +57,7 @@ COPIES = [
     "codecs/entropy.py", "codecs/rangecoder.py", "codecs/rans.py",
     "pipeline/gop.py", "native/__init__.py", "native/spdec.cpp",
     "encode/__init__.py", "encode/sp_enc.py", "encode/avi_mux.py",
+    "codecs/msvideo1.py", "codecs/lane_format.py", "transcode.py",
 ]
 
 #: the repairs a copy may carry beyond its import lines: for each file,
@@ -70,6 +71,11 @@ REPAIRS = {
     # device_trace used jax.profiler; nothing of the port calls it
     "utils/logging.py": [(r"^TPU-era extensions", r'^"""$'),
                          (r"^LOG = Log\(\)", None)],
+    # derive_window reads `restart` from the derived commands, the parser's
+    # own test (ROADMAP §3 reference host fault 1): the command derivation
+    # moves ahead of the restart test
+    "codecs/lane_format.py": [(r"^    btype = np\.zeros\(\(T, NB\)",
+                               r"^        if not changed\[t\]:")],
 }
 
 IMPORT_LINE = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s+\S)")
@@ -112,7 +118,8 @@ def test_every_host_module_of_the_port_is_a_listed_copy():
         for name in os.listdir(os.path.join(PORT, sub)):
             if name.endswith((".py", ".cpp")):
                 found.append(f"{sub}/{name}")
-    assert sorted(found + ["pipeline/gop.py"]) == sorted(COPIES)
+    assert sorted(found + ["pipeline/gop.py", "transcode.py"]) == \
+        sorted(COPIES)
 
 
 # ---------------------------------------------------------------------------
@@ -366,3 +373,286 @@ def test_native_load_is_thread_safe(monkeypatch):
     monkeypatch.setattr(ctypes, "CDLL", real)
     assert all(lib is not None for lib in got)
     assert len({id(lib) for lib in got}) == 1
+
+
+# ---------------------------------------------------------------------------
+# MSVideo1, the lane container and its transcoder
+
+def msv1_8_avi(seed, X=64, Y=48, T=7):
+    """An 8-bit palettized MSV1 stream (tests/test_lane_container.py's)."""
+    from jsplayer_tpu.encode.msv1_enc import encode_frame_8
+
+    rng = np.random.default_rng(seed)
+    pal = bytes(b for i in range(256)
+                for b in (i, (i * 3) & 0xFF, (i * 7) & 0xFF, 0))
+    idx = np.full(Y * X, 3, dtype=np.uint8)
+    chunks, prev = [], None
+    for t in range(T):
+        idx = idx.copy()
+        x0 = int(rng.integers(0, (X - 4) // 4)) * 4
+        idx.reshape(Y, X)[8:12, x0:x0 + 4] = int(rng.integers(0, 256))
+        chunks.append(encode_frame_8(idx, prev, X, Y))
+        prev = idx
+    return j_mux(chunks, X, Y, 8, codec="CRAM", palette=pal,
+                 keyflags=[t == 0 for t in range(T)])
+
+
+def msv1_16_avi(seed):
+    from test_lane_container import _msv1_16_avi
+
+    return _msv1_16_avi(seed, 64, 48, 9)[0]
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_msvideo1_matches_reference(bits):
+    """The port's MSVideo1 decoders and parse_commands on every frame of a
+    stream: results, frames and command tensors equal the reference's."""
+    from jsplayer_tpu.codecs import msvideo1 as JM
+    from jsplayer_tpu_torch.codecs import msvideo1 as PM
+
+    avi = msv1_8_avi(1) if bits == 8 else msv1_16_avi(1)
+    r = JReader(JMem(avi))
+    X, Y = r.info.width, r.info.height
+    pal = r.info.palette or b""
+    decs = [M.MSVideo1_8bit(X, Y, pal) if bits == 8 else M.MSVideo1_16bit(X, Y)
+            for M in (JM, PM)]
+    for d in decs:
+        d.preinit(0)
+    for src in r.frames + [b""]:
+        outs = []
+        for dec in decs:
+            dst = np.zeros(X * Y, dtype=np.uint32)
+            isk = dec.is_key_frame(src)
+            res = dec.decompress_i(src, dst) if isk else \
+                dec.decompress_p(src, dst)
+            outs.append((isk, plain(res), dst, dec.previous_frame()))
+        assert outs[1][:2] == outs[0][:2]
+        np.testing.assert_array_equal(outs[1][2], outs[0][2])
+        np.testing.assert_array_equal(outs[1][3], outs[0][3])
+        p_pal = PM.palette_to_u32(pal) if bits == 8 else None
+        j_pal = JM.palette_to_u32(pal) if bits == 8 else None
+        for a, b in zip(PM.parse_commands(src, X, Y, p_pal),
+                        JM.parse_commands(src, X, Y, j_pal)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def lane_sources():
+    """name → AVI bytes: SP v2/v3/v4 (keyframes every 5 or one), MSV1 8
+    and 16 bit."""
+    from test_lane_container import make_avi
+
+    return {"sp4_keys": lambda: make_avi(7, 64, 48, 14, key_every=5)[0],
+            "sp4_one_key": lambda: make_avi(8, 64, 48, 10)[0],
+            "sp2": lambda: make_avi(7, 64, 48, 8, version=2)[0],
+            "sp3": lambda: make_avi(7, 64, 48, 8, version=3)[0],
+            "msv1_8": lambda: msv1_8_avi(2),
+            "msv1_16": lambda: msv1_16_avi(2)}
+
+
+@pytest.mark.parametrize("payload", ["raw", "rans"])
+@pytest.mark.parametrize("name", sorted(lane_sources()))
+def test_transcode_to_lane_matches_reference(name, payload):
+    """The port's transcode_to_lane (its copies of transcode.py,
+    codecs/lane_format.py, codecs/msvideo1.py and rans_lanes' host helpers)
+    writes the reference's container byte for byte, keyframe- and
+    stride-aligned, deflated or not."""
+    from jsplayer_tpu.transcode import transcode_to_lane as j_lane
+    from jsplayer_tpu_torch.transcode import transcode_to_lane as p_lane
+
+    avi = lane_sources()[name]()
+    for kw in (dict(), dict(align="stride", compress=False)):
+        want = j_lane(avi, window=4, K=2, payload=payload, **kw)
+        assert p_lane(avi, window=4, K=2, payload=payload, **kw) == want, kw
+
+
+@pytest.mark.parametrize("align", ["keyframes", "stride"])
+def test_transcode_to_lane_jobs_matches_reference(align):
+    """jobs > 1 (restart-delimited units in threads) gives the serial
+    reference's bytes, both payloads; use_native=False (the pure-Python
+    oracle) too."""
+    from jsplayer_tpu.transcode import transcode_to_lane as j_lane
+    from jsplayer_tpu_torch.transcode import transcode_to_lane as p_lane
+    from test_lane_container import make_avi
+
+    avi = make_avi(7, 64, 48, 24, key_every=5)[0]
+    for payload in ("raw", "rans"):
+        want = j_lane(avi, window=4, K=2, payload=payload, align=align)
+        assert p_lane(avi, window=4, K=2, payload=payload, align=align,
+                      jobs=4) == want
+    assert p_lane(avi, window=4, K=2, align=align, use_native=False) == \
+        j_lane(avi, window=4, K=2, align=align, use_native=False)
+
+
+def test_lane_container_parse_matches_reference():
+    """container_from_bytes of the port and the reference: equal fields on
+    raw (sub-unit and plain), rans and audio-carrying containers."""
+    from jsplayer_tpu.codecs import lane_format as JL
+    from jsplayer_tpu.transcode import transcode_to_lane as j_lane
+    from jsplayer_tpu_torch.codecs import lane_format as PL
+
+    avi = lane_sources()["sp4_keys"]()
+    for kw in (dict(), dict(compress=False), dict(payload="rans")):
+        blob = j_lane(avi, window=4, K=2, **kw)
+        assert PL.is_lane_container(blob)
+        got, want = PL.container_from_bytes(blob), JL.container_from_bytes(blob)
+        assert plain(got) == plain(want)
+        ncol = PL.plane_cols(got.X) // 128
+        for gw, ww in zip(got.windows, want.windows):
+            for a, b in zip(gw.row_index(got.Y, ncol),
+                            ww.row_index(want.Y, ncol)):
+                np.testing.assert_array_equal(a, b)
+        assert PL.container_to_bytes(got) == JL.container_to_bytes(want)
+
+
+def malformed_containers():
+    """tests/test_lane_container.py's malformed cases → [(what, bytes)]:
+    truncations, a bad magic, an absurd T, a deflate bomb in the bulk, a
+    bomb behind an empty bulk, an out-of-range sub-unit id, a record shrunk
+    below its header, duplicated windows, and each window's restart flag
+    flipped."""
+    import struct
+    import zlib
+
+    from jsplayer_tpu.codecs import lane_format as JL
+    from jsplayer_tpu.transcode import transcode_to_lane as j_lane
+    from test_lane_container import make_avi
+
+    hs = struct.calcsize("<4sHHBBHIHII")
+    avi = make_avi(9, 48, 32, 4)[0]
+    cont = j_lane(avi, window=4)
+    out = [(f"cut {c}", cont[:c]) for c in (3, 10, len(cont) // 2,
+                                            len(cont) - 5)]
+    out.append(("magic", b"XXXX" + cont[4:]))
+    bad = bytearray(cont)
+    bad[hs + 4: hs + 6] = (60000).to_bytes(2, "little")
+    out.append(("absurd T", bytes(bad)))
+    c = JL.container_from_bytes(cont)
+    w = c.windows[0]
+    body = JL._window_to_bytes(w, c.K, c.n_lanes, compress=False)
+    bulk_len = 3 * w.n_units * 128
+    meta = bytearray(body[4: len(body) - bulk_len])
+    meta[struct.calcsize("<HIII")] |= 4 | 2
+    bomb = zlib.compress(b"\x00" * (bulk_len + 4096), 9)
+    rec = bytes(meta) + struct.pack("<I", len(bomb)) + bomb
+    out.append(("bulk bomb", cont[:hs] + struct.pack("<I", len(rec)) + rec))
+    w.unit_rows = [np.zeros(0, dtype=np.int64) for _ in range(w.T)]
+    w.unit_idx, w.n_units = None, 0
+    w.payload = np.zeros((0, 3, 128), dtype=np.uint8)
+    meta = bytearray(JL._window_to_bytes(w, c.K, c.n_lanes,
+                                         compress=False)[4:])
+    meta[struct.calcsize("<HIII")] |= 4
+    bomb = zlib.compress(b"\x00" * (8 << 20), 9)
+    rec = bytes(meta) + struct.pack("<I", len(bomb)) + bomb
+    out.append(("empty bulk bomb",
+                cont[:hs] + struct.pack("<I", len(rec)) + rec))
+    wire = bytearray(j_lane(make_avi(5, 64, 48, 6)[0], window=6,
+                            compress=False))
+    wire[-2:] = b"\xff\xff"
+    out.append(("sub-unit id", bytes(wire)))
+    shrunk = bytearray(cont)
+    shrunk[hs: hs + 4] = struct.pack("<I", 0)
+    out.append(("record header", bytes(shrunk)))
+    keyed = bytes(j_lane(make_avi(21, 48, 32, 14, key_every=5)[0], window=4,
+                         K=2))
+    (rec_len,) = struct.unpack_from("<I", keyed, hs)
+    out.append(("tiling", keyed + keyed[hs: hs + 4 + rec_len]))
+    c = JL.container_from_bytes(keyed)
+    good = JL.container_to_bytes(c, compress=False)
+    for wi, win in enumerate(c.windows):
+        win.restart = not win.restart
+        flipped = JL.container_to_bytes(c, compress=False)
+        win.restart = not win.restart
+        diff = [i for i in range(len(good)) if good[i] != flipped[i]]
+        assert len(diff) == 1
+        m = bytearray(good)
+        m[diff[0]] = flipped[diff[0]]
+        out.append((f"restart flag {wi}", bytes(m)))
+    return out
+
+
+def test_lane_container_rejects_what_the_reference_rejects():
+    from jsplayer_tpu.codecs import lane_format as JL
+    from jsplayer_tpu_torch.codecs import lane_format as PL
+
+    cases = malformed_containers()
+    assert len(cases) > 12
+    for what, blob in cases:
+        msgs = []
+        for mod in (JL, PL):
+            with pytest.raises(ValueError) as e:
+                mod.container_from_bytes(blob)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1], what
+
+
+def full_repaint_window():
+    """A capture whose frame 0 repaints every 16x16 block with full-rect
+    data blocks, a third of them bts 2 (not 1), then a paint and a still
+    → (bts, mv, rect, frames, changed, signif, X, Y)."""
+    from jsplayer_tpu.codecs.lane_format import block_full_rects
+
+    X, Y, T = 48, 32, 3
+    nbx, nby = X // 16, Y // 16
+    rng = np.random.default_rng(4)
+    frames = np.zeros((T, Y, X), dtype=np.uint32)
+    frames[0] = rng.integers(0, 1 << 24, (Y, X), dtype=np.uint32)
+    frames[1] = frames[0]
+    frames[1, 3:9, 5:20] = 0x123456
+    frames[2] = frames[1]
+    bts = np.zeros((T, nbx * nby), dtype=np.int32)
+    rect = np.zeros((T, nbx * nby, 4), dtype=np.int32)
+    bts[0] = 1
+    bts[0, ::3] = 2
+    rect[0] = block_full_rects(X, Y, nbx, nby)
+    bts[1, [0, 1]] = 1
+    rect[1, 0] = (5, 3, 16, 9)
+    rect[1, 1] = (16, 3, 20, 9)
+    mv = np.zeros((T, nbx * nby, 2), dtype=np.int32)
+    changed = np.array([True, True, False])
+    return bts, mv, rect, frames, changed, changed.copy(), X, Y
+
+
+@pytest.mark.parametrize("payload", ["raw", "rans"])
+def test_lane_restart_from_derived_commands(payload):
+    """Reference host fault 1, repaired in the port's copy: a frame-0 full
+    repaint holding bts-2 full-rect data blocks derives restart=False in the
+    reference (its raw bts[0] == 1 test), which its own parser then rejects;
+    the port derives restart from the derived commands, the parser's test,
+    and its container parses and decodes to the source frames.  On every
+    other capture the two containers are the same bytes (pinned above)."""
+    from jsplayer_tpu.codecs import lane_format as JL
+    from jsplayer_tpu_torch.codecs import lane_format as PL
+    from jsplayer_tpu_torch.kernels import lane_recon
+
+    bts, mv, rect, frames, changed, signif, X, Y = full_repaint_window()
+
+    def container(mod):
+        w = mod.derive_window(bts, mv, rect, frames, changed, signif, X, Y,
+                              2, 128, payload_mode=payload)
+        c = mod.LaneContainer(X=X, Y=Y, bpp=24, K=2, n_lanes=128,
+                              n_frames=len(frames), window=len(frames),
+                              fps=10.0, windows=[w])
+        return w, mod.container_to_bytes(c)
+
+    jw, jblob = container(JL)
+    assert not jw.restart
+    with pytest.raises(ValueError, match="restart flag"):
+        JL.container_from_bytes(jblob)
+    pw, pblob = container(PL)
+    assert pw.restart and (pw.init_plane is not None) == (payload == "rans")
+    (w,) = PL.container_from_bytes(pblob).windows
+    assert w.restart
+    rt, ri = w.row_index(Y, PL.plane_cols(X) // 128)
+    cmds = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        w.btype, w.rect, w.mvk, rt, ri, w.changed)]
+    zero = torch.zeros((Y, X), dtype=torch.int32)
+    if payload == "raw":
+        got = lane_recon.decode_window_raw(
+            zero, torch.from_numpy(w.payload), *cmds)
+    else:
+        got = lane_recon.decode_window_lane(
+            torch.from_numpy(w.init_plane.view(np.int32)),
+            torch.from_numpy(w.refills),
+            torch.from_numpy(w.states.view(np.int32)),
+            torch.from_numpy(w.freq), *cmds, U=w.n_units)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), frames)

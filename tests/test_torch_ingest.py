@@ -294,8 +294,9 @@ def test_unported_paths_raise(what):
         kw["mesh"] = object()
     elif what == "msv1":
         srcs = [MemorySource(msv1_avi(1)[0])]
-    else:
+    else:  # lane containers are ported, not over a mesh
         srcs = [MemorySource(b"JLV1" + bytes(60))]
+        kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.VideoIngestPipeline(srcs, P.IngestConfig(**kw))
 
@@ -379,8 +380,8 @@ def test_block_command_paths_quarantine(path, native, monkeypatch):
 
 @pytest.mark.parametrize("path", ["bc", "kmv_sparse", "lane"])
 def test_unported_sp_paths_raise(path):
-    """kmv_sparse and lane are not ported; bc is, but not over a mesh."""
-    kw = dict(mesh=object()) if path == "bc" else {}
+    """kmv_sparse is not ported; bc and lane are, but not over a mesh."""
+    kw = dict(mesh=object()) if path in ("bc", "lane") else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.VideoIngestPipeline([MemorySource(SP3[0])],
                               P.IngestConfig(device="cpu",

@@ -103,7 +103,44 @@ def test_bc_path_and_validate_run_without_importing_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 16 5"
+    assert proc.stdout.strip() == "ok 16 8"
+
+
+TINY_LANE = TINY_INGEST.split("pipe = ")[0] + r"""
+n = 0
+for payload in ("raw", "rans"):
+    lane = jt.transcode_to_lane(avi, window=4, K=2, payload=payload)
+    for kw in (dict(sp_device_path="lane", still_elision=True),
+               dict(model_downscale=2)):
+        pipe = jt.VideoIngestPipeline(
+            [jt.MemorySource(lane), jt.MemorySource(lane)],
+            jt.IngestConfig(device="cpu", **kw))
+        for w in pipe:
+            om = w.get("outmap")
+            n += om.size if om is not None else w["frames_u32"].shape[1]
+from jsplayer_tpu_torch import validate
+legs = validate.Legs("cpu")
+res = {leg: getattr(legs, leg)() for leg in validate.LEGS if "lane" in leg}
+assert res == {"lane_raw_parity": True, "lane_rans_parity": True,
+               "lane_ragged_parity": True}, res
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
+print("ok", n, len(res))
+"""
+
+
+def test_lane_path_runs_without_importing_jax():
+    """The lane ingest (raw and rans payloads, auto-detected and flagged,
+    elided and dense), the port's transcode_to_lane and the three lane
+    legs of jsplayer_tpu_torch.validate import no jax and nothing of
+    jsplayer_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_LANE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 36 3"
 
 
 def port_sources():
@@ -269,7 +306,7 @@ def test_experiments_run_without_importing_jax():
     assert proc.stdout.split() == [
         "ok", "bc_step", "block_step", "common", "exp_model_fusion2",
         "exp_pallas_bisect", "exp_pallas_ds", "exp_pallas_ds2", "kmv_step",
-        "probe_step", "probes", "streams"]
+        "lane_step", "probe_step", "probes", "streams"]
 
 
 def test_experiment_kernels_never_take_the_plain_path(no_cuda):
@@ -287,3 +324,28 @@ def test_experiment_kernels_never_take_the_plain_path(no_cuda):
         kmv_compose_ds2(plane, plane, torch.empty((2, 2, 2), **meta),
                         torch.ones(2, dtype=torch.bool, device="meta"))
     assert ds_probe.launches == kmv_compose_ds2.launches == 0
+
+
+def test_lane_kernels_never_take_the_plain_path(no_cuda):
+    """lane_compose, rans_decode_aligned and rans_decode_packed: a tensor
+    off the CPU goes to the kernel branch, which raises here (no card)."""
+    from jsplayer_tpu_torch.kernels.lane_recon import lane_compose
+    from jsplayer_tpu_torch.kernels.rans_lanes import (rans_decode_aligned,
+                                                       rans_decode_packed)
+
+    i32 = dict(dtype=torch.int32, device="meta")
+    u8 = dict(dtype=torch.uint8, device="meta")
+    plane = torch.empty((1, 16, 16), **i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        lane_compose(plane, torch.empty((1, 2, 16), **i32),
+                     torch.empty((1, 16), **i32), torch.empty((1, 1), **u8),
+                     torch.empty((1, 1, 4), **u8),
+                     torch.empty((1, 2, 2), **i32),
+                     torch.ones(1, dtype=torch.bool, device="meta"))
+    states, freq = torch.empty((1, 8), **i32), torch.empty((1, 256), **i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        rans_decode_aligned(torch.empty((1, 3, 8, 2), **u8), states, freq)
+    with pytest.raises(ValueError, match="CUDA"):
+        rans_decode_packed(torch.empty((1, 8, 4), **u8), states, freq, 3)
+    assert lane_compose.launches == rans_decode_aligned.launches == \
+        rans_decode_packed.launches == 0
