@@ -44,11 +44,14 @@ step with the most motion and over stream 0's B=1 steps; runs
 validate phase, rans_decode_aligned and rans_decode_packed (csrc/
 rans_lanes.cu) against their twins at N=4096, B=4 on a dense 1080p window
 (experiments/lane_step.dense_rans, encoded once) and on random u32
-states, refills and lane bytes, then roundtrip_decode, the packed
-decode's route.  The validate phase runs jsplayer_tpu_torch.validate's
-eight parity legs on the card.  Then phase (e), the ds2
-experiments (jsplayer_tpu_torch.
-experiments): kmv_compose_ds2 (csrc/kmv_compose.cu's fused compose+ds2
+states, refills and lane bytes, each beside its chain bound (the time of
+csrc/rans_lanes.cu's chain probe on the same inputs, itself held against
+its twin) and the SM clock under load, then roundtrip_decode, the packed
+decode's route.  The aligned decode must take its staged instance there,
+in run (j) and in the validate legs.  The validate phase runs
+jsplayer_tpu_torch.validate's eight parity legs on the card.  Then phase
+(e), the ds2 experiments (jsplayer_tpu_torch.experiments):
+kmv_compose_ds2 (csrc/kmv_compose.cu's fused compose+ds2
 instance) on random inputs and every mode of csrc/ds_probe.cu at its
 script's full shape, each against its plain twin; then the experiments'
 entry points: exp_model_fusion2's seven variants on the 1080p bench-mix
@@ -98,7 +101,8 @@ from jsplayer_tpu_torch.experiments.common import (HBM_BYTES_PER_MS,
                                                    bc_bytes, bc_data_pixels,
                                                    block_bytes, card_line,
                                                    graph_ms, io_bytes,
-                                                   rand_frames, time_ms)
+                                                   rand_frames, sm_clocks,
+                                                   time_ms)
 
 # the slice: block_step's captured streams, B=4 x T=128 frames, 1080p,
 # keyframes at 0 and 40: windows [0,40) [40,104) CONCAT, [104,128) starts
@@ -194,9 +198,28 @@ def phase_build() -> None:
     log(f"kernel build+load: {dt:.3f} s"
         + (f" (nvcc {info['seconds']:.3f} s)" if info else " (up to date)"))
     if info:
+        name = "?"
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                name = kernel_name(line)
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas: {name}: {line.strip()}")
+
+
+def kernel_name(line: str) -> str:
+    """A kernel's name in ptxas's `Compiling entry function '<mangled>'`
+    line: the name after the source file's namespace, with its template
+    arguments as the mangled tail (`ILb1E`), else the mangled name."""
+    import re
+
+    mangled = line.split("'")[1] if "'" in line else line
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name = mangled[m.end():m.end() + n]
+    tail = re.match(r"I(\w+?)E", mangled[m.end() + n:])
+    return name + (f"<{tail.group(1)}>" if tail else "")
 
 
 def phase_kernels(card: str) -> dict:
@@ -324,17 +347,28 @@ def kernel_counters() -> dict:
 def count_launches(fn):
     """Run fn() with every kernel's launch count set to 0 just before it →
     (fn's result, {kernel: launches during fn}); ds_probe's launches per
-    mode under "ds_probe_modes"."""
+    mode under "ds_probe_modes", rans_decode_aligned's per instance under
+    "rans_aligned_instances"."""
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+    from jsplayer_tpu_torch.kernels.rans_lanes import rans_decode_aligned
 
     counters = kernel_counters()
     for w in counters.values():
         w.launches = 0
     ds_probe.by_mode.clear()
+    rans_decode_aligned.by_instance.clear()
     res = fn()
     got = {name: w.launches for name, w in counters.items()}
     got["ds_probe_modes"] = dict(ds_probe.by_mode)
+    got["rans_aligned_instances"] = dict(rans_decode_aligned.by_instance)
     return res, got
+
+
+def require_staged(launches, what):
+    """Every rans_decode_aligned launch in a run took the staged instance."""
+    inst = launches["rans_aligned_instances"]
+    require(inst.get("staged", 0) == launches["rans_decode_aligned"] > 0,
+            f"{what}: rans_decode_aligned ran its staged instance ({inst})")
 
 
 def require_only(launches, kernels, what):
@@ -342,7 +376,7 @@ def require_only(launches, kernels, what):
     require(all(launches[k] > 0 for k in kernels),
             f"{what} launched {kernels} ({launches})")
     require(sum(v for k, v in launches.items()
-                if k not in (*kernels, "ds_probe_modes")) == 0,
+                if k not in kernels and not isinstance(v, dict)) == 0,
             f"{what} launched no other kernel ({launches})")
 
 
@@ -1009,8 +1043,10 @@ def phase_lane_runs(card: str, conts, src, models) -> dict:
         require_only(launches, ("lane_compose", "ds2_pack")
                      + (("rans_decode_aligned",) if payload == "rans"
                         else ()), f"run ({name})")
+        if payload == "rans":
+            require_staged(launches, f"run ({name})")
         for k, v in launches.items():
-            if k != "ds_probe_modes":
+            if not isinstance(v, dict):
                 total[k] = total.get(k, 0) + v
         if elide:
             for b in range(B):
@@ -1055,6 +1091,14 @@ def phase_rans_kernels(card: str) -> tuple[dict, dict]:
         f"(host, once)")
     inputs = {"dense": LS.rans_batch(d, DEV), "random": LS.random_rans(DEV)}
     syms = torch.from_numpy(d["syms"]).to(DEV)
+    chains = {}
+    for what, a in inputs.items():
+        chains[what] = LS.chain_bound(a)
+        require(chains[what]["exact"], f"the chain probe on the {what} "
+                f"inputs bit-exact vs plain")
+        log(f"chain bound [{B},{a['steps']},{LS.N_LANES}] {what}: "
+            f"{chains[what]['graph_ms']:.4f} ms as a CUDA graph, "
+            f"{chains[what]['ms']:.4f} by events ({card})")
     res = {}
     for name, packed in (("rans_decode_aligned", False),
                          ("rans_decode_packed", True)):
@@ -1065,6 +1109,9 @@ def phase_rans_kernels(card: str) -> tuple[dict, dict]:
             err = max_abs_err(got, want)
             require(torch.equal(got, want), f"{name} {what} bit-exact vs "
                     f"plain")
+            if not packed:
+                require(R.rans_decode_aligned.last_instance == "staged",
+                        f"{name} {what} ran its staged instance")
             if what == "dense":
                 require(all(torch.equal(got[b].reshape(-1)[: d["n"]], syms)
                             for b in range(B)),
@@ -1076,12 +1123,24 @@ def phase_rans_kernels(card: str) -> tuple[dict, dict]:
                          f"bit-exact", card, ms, graph,
                          time_ms(twin, iters=2, warmup=1),
                          LS.rans_bytes(a, packed)))
+            chain = chains[what]["graph_ms"]
+            r.update(instance=("ring" if packed
+                               else R.rans_decode_aligned.last_instance),
+                     chain_bound_ms=chain, chain_share=chain / graph,
+                     bytes_share=r["bound_ms"] / graph,
+                     share=max(chain, r["bound_ms"]) / graph)
             log(f"{name} {what}: {r['msym_s']:.0f} Msym/s through the "
-                f"wrapper, {r['graph_msym_s']:.0f} as a CUDA graph")
+                f"wrapper, {r['graph_msym_s']:.0f} as a CUDA graph; chain "
+                f"bound {chain:.4f} ms, {100 * r['chain_share']:.1f}% of it "
+                f"(graph), {r['instance']} instance")
             if what == "dense":
                 res[name] = r
             else:
                 res[name]["random"] = r
+    clocks = sm_clocks(LS.rans_call(inputs["dense"], False)[0])
+    log(f"SM clocks (clocks.sm, clocks.max.sm) under rans_decode_aligned: "
+        f"{clocks} ({card})")
+    res["rans_decode_aligned"]["sm_clocks"] = clocks
     del inputs
     rt, launches = count_launches(lambda: R.roundtrip_decode(
         d["lane_bytes"], d["states"], d["freq"], d["n"], LS.N_LANES,
@@ -1107,6 +1166,7 @@ def phase_validate(card: str) -> dict:
               "kmv_compose", "bc_compose", "lane_compose",
               "rans_decode_aligned"):
         require(launches[k] > 0, f"the validate legs launched {k}")
+    require_staged(launches, "the validate legs")
     return res
 
 

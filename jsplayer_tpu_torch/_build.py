@@ -127,6 +127,10 @@ def load() -> ctypes.CDLL:
         lib.jsp_rans_decode_packed.restype = i32
         lib.jsp_rans_decode_packed.argtypes = ([p, i64, i32] + [p, i64] * 3
                                                + [i32, i32, i32, p])
+        lib.jsp_rans_aligned_instance.restype = i32
+        lib.jsp_rans_aligned_instance.argtypes = [p, i64, i32]
+        lib.jsp_rans_chain_probe.restype = i32
+        lib.jsp_rans_chain_probe.argtypes = [p, i64] * 3 + [i32, i32, i32, p]
         lib.jsp_ds2_pack.restype = i32
         lib.jsp_ds2_pack.argtypes = [p, i64, p, i64, i32, i32, i32, i32, p]
         lib.jsp_ds_probe.restype = i32

@@ -19,6 +19,7 @@ fusion experiment decodes; ``kmv_step`` times the two kmv kernels at a
 B=4 random step, through the wrapper and as a CUDA graph; ``block_step``,
 ``bc_step``, ``probe_step`` and ``lane_step`` do the same for the
 sp_motion.cu modes, bc_compose, block_transpose and the lane path's
-kernels (lane_compose and the two rANS decodes).  Nothing here imports
-jax.
+kernels (lane_compose and the two rANS decodes, beside the chain probe's
+bound); ``lane_runs`` profiles the lane path's runs (h) and (j).
+Nothing here imports jax.
 """

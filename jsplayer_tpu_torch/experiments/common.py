@@ -58,16 +58,7 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     CUDA graph, CUDA events around `replays` replays.  fn's allocations on
     the card are made once, at capture, from the graph's own pool; its
     host work (checks, launches) is not replayed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    graph = capture(fn, iters)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -78,6 +69,36 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def capture(fn, iters: int) -> torch.cuda.CUDAGraph:
+    """`iters` calls of fn, after warm-up calls on a side stream, captured
+    into one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return graph
+
+
+def sm_clocks(fn, calls: int = 20000) -> str:
+    """Card 0's `clocks.sm, clocks.max.sm` as nvidia-smi reports them while
+    the card runs `calls` calls of fn, replayed from one CUDA graph."""
+    graph = capture(fn, 20)
+    for _ in range(calls // 20):
+        graph.replay()
+    line = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    torch.cuda.synchronize()
+    return line
 
 
 def io_bytes(*ts: torch.Tensor) -> int:

@@ -7,9 +7,16 @@ as CUDA events around wrapper calls and as a CUDA graph.
     python -m jsplayer_tpu_torch.experiments.lane_step
 
 prints one JSON line: {"card": "<name>, <power limit>", "lane_compose":
-{"ms", "graph_ms", "bytes", "bound_ms", "exact"}, "rans_decode_aligned":
-{..., "msym_s"}, "rans_decode_packed": {...}}; `exact` holds each result
-against its plain twin, bit for bit.
+{"ms", "graph_ms", "bytes", "bound_ms", "exact"}, "rans_chain_probe":
+{"ms", "graph_ms", "exact"}, "rans_decode_aligned": {..., "bytes_share",
+"chain_bound_ms", "chain_share", "share", "msym_s", "graph_msym_s",
+"instance"}, "rans_decode_packed": {...}, "sm_clocks": "<clocks.sm,
+clocks.max.sm>"}; `exact` holds each result against its plain twin, bit
+for bit.  The chain bound is the chain probe's graph time (chain_probe):
+the least time the card takes for the decodes' lockstep chains, which for
+these lanes is larger than the bytes bound; `share` is the larger bound
+over the graph time.  In a checkout whose kernels have no probe the chain
+fields are null.  `sm_clocks` is read while the aligned decode runs.
 
 The random step (step_inputs) is bc_step's with rows for a plane: codes
 0..5 and 255, rects with bounds 0..20 and a third of whole blocks,
@@ -34,10 +41,11 @@ import json
 import numpy as np
 import torch
 
+from .. import _build
 from .bc_step import step_inputs as bc_inputs
 from .block_step import B, X, Y
 from .common import HBM_BYTES_PER_MS, bc_data_pixels, card, graph_ms, \
-    io_bytes, time_ms
+    io_bytes, sm_clocks, time_ms
 
 UR = 512           # rows of the random step's row table
 N_LANES = 4096     # lanes a stream (transcode_to_lane's choice at 1080p)
@@ -183,6 +191,79 @@ def msym_s(a: dict, ms: float) -> float:
     return Bn * a["steps"] * N / ms / 1e3
 
 
+def chain_probe(states: torch.Tensor, freq: torch.Tensor,
+                steps: int) -> torch.Tensor:
+    """csrc/rans_lanes.cu's chain probe on the card: the decodes' grid and
+    table build, then `steps` times one slot-table load, the multiply-add
+    and one compare and select a lane, no global traffic in the loop →
+    each lane's final state, int32 [B, N].  Its time is the chain bound: the
+    least time the card takes for a lockstep table-driven decode of these
+    lanes and steps."""
+    out = torch.empty_like(states)
+    rc = _build.load().jsp_rans_chain_probe(
+        states.data_ptr(), states.stride(0), freq.data_ptr(), freq.stride(0),
+        out.data_ptr(), out.stride(0), states.shape[0], states.shape[1],
+        steps, torch.cuda.current_stream(states.device).cuda_stream)
+    _build.check(rc, "rans_chain_probe")
+    return out
+
+
+def chain_probe_ref(states: torch.Tensor, freq: torch.Tensor,
+                    steps: int) -> torch.Tensor:
+    """Plain twin of chain_probe: the decode's symbol step, then x < 2^23
+    takes x << 8 | 0x5A."""
+    from ..kernels.rans_lanes import RANS_L, _decode_symbol, _tables
+
+    f, cum = _tables(freq)
+    x = states.to(torch.int64) & 0xFFFFFFFF
+    for _ in range(steps):
+        _, x = _decode_symbol(x, f, cum)
+        x = torch.where(x < RANS_L, ((x << 8) | 0x5A) & 0xFFFFFFFF, x)
+    return x.to(torch.int32)
+
+
+def chain_bound(a: dict) -> dict:
+    """The chain probe on the decodes' inputs a, checked against its twin →
+    {"ms", "graph_ms", "build_graph_ms", "exact"}: graph_ms is the chain
+    bound; build_graph_ms the probe with no steps, a launch that builds
+    the tables and writes the states."""
+    args = (a["states"], a["freq"], a["steps"])
+    exact = torch.equal(chain_probe(*args), chain_probe_ref(*args))
+    return dict(ms=time_ms(lambda: chain_probe(*args)),
+                graph_ms=graph_ms(lambda: chain_probe(*args)),
+                build_graph_ms=graph_ms(lambda: chain_probe(*args[:2], 0)),
+                exact=exact)
+
+
+def aligned_instance() -> str:
+    """The aligned decode's instance of its last launch ("staged" or
+    "bytes"), or "single" where the checkout's kernel has one instance."""
+    from ..kernels.rans_lanes import rans_decode_aligned
+
+    return getattr(rans_decode_aligned, "last_instance", None) or "single"
+
+
+def rans_report(a: dict, packed: bool, chain: dict | None) -> dict:
+    """One decode on the arguments a: events and graph times, Msym/s, the
+    bytes bound, the chain bound (chain: chain_bound(a), or None where the
+    checkout has no probe), each bound's share of the graph time and the
+    larger one's, the instance that ran, and the result against the twin,
+    bit for bit."""
+    kernel, twin = rans_call(a, packed)
+    exact = torch.equal(kernel(), twin())
+    instance = "ring" if packed else aligned_instance()
+    nbytes = rans_bytes(a, packed)
+    ms, graph = time_ms(kernel), graph_ms(kernel)
+    bound = nbytes / HBM_BYTES_PER_MS
+    chain_ms = chain["graph_ms"] if chain else None
+    return dict(ms=ms, graph_ms=graph, bytes=nbytes, bound_ms=bound,
+                bytes_share=bound / graph, chain_bound_ms=chain_ms,
+                chain_share=chain_ms / graph if chain else None,
+                share=max(bound, chain_ms or 0.0) / graph,
+                msym_s=msym_s(a, ms), graph_msym_s=msym_s(a, graph),
+                instance=instance, exact=exact)
+
+
 def main() -> None:
     from ..kernels.lane_recon import lane_compose, lane_compose_ref
 
@@ -200,15 +281,15 @@ def main() -> None:
         bound_ms=nbytes / HBM_BYTES_PER_MS,
         exact=torch.equal(out, lane_compose_ref(prev, *args, chg)))}
     a = rans_batch(dense_rans(), device)
+    # None in a checkout from before the probe
+    chain = chain_bound(a) if hasattr(_build.load(),
+                                      "jsp_rans_chain_probe") else None
+    res["rans_chain_probe"] = chain
     for name, packed in (("rans_decode_aligned", False),
                          ("rans_decode_packed", True)):
-        kernel, twin = rans_call(a, packed)
-        nbytes = rans_bytes(a, packed)
-        ms = time_ms(kernel)
-        res[name] = dict(ms=ms, graph_ms=graph_ms(kernel), bytes=nbytes,
-                         bound_ms=nbytes / HBM_BYTES_PER_MS,
-                         msym_s=msym_s(a, ms),
-                         exact=torch.equal(kernel(), twin()))
+        res[name] = rans_report(a, packed, chain)
+    kernel, _ = rans_call(a, False)
+    res["sm_clocks"] = sm_clocks(kernel)  # under the aligned decode
     print(json.dumps(dict(card=line, **res)), flush=True)
 
 

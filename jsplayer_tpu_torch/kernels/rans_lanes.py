@@ -12,11 +12,14 @@ N states advance in lockstep.  Two layouts, as in the reference:
     takes 255, as the reference's ``take_along_axis`` fill does.
 
 Each is one launch for B streams of csrc/rans_lanes.cu for tensors on the
-card (one thread a lane, the state in a register, a 4096-slot symbol table
-in shared memory), and its plain twin ``*_ref`` (int64 torch ops masked to
-32 bits) for tensors on the CPU.  The reference's functions keep their
-names and signatures (``decode_lanes_aligned``, ``decode_lanes``,
-``roundtrip_decode``, ``roundtrip_decode_aligned``) as B=1 calls of those.
+card (one thread a lane, the state in a register, 4096-slot tables in
+shared memory, the refill bytes copied into shared memory far ahead of
+the lane's dependent chain; the aligned decode's other shapes take an
+instance of byte loads, ``ALIGNED_INSTANCES``), and its plain twin
+``*_ref`` (int64 torch ops masked to 32 bits) for tensors on the CPU.  The
+reference's functions keep their names and signatures
+(``decode_lanes_aligned``, ``decode_lanes``, ``roundtrip_decode``,
+``roundtrip_decode_aligned``) as B=1 calls of those.
 
 u32 words (states) are int32 tensors holding the u32 bits (device.py);
 refills, lane bytes and symbols are uint8, freq int32.  The kernels assume
@@ -30,6 +33,8 @@ never does.  tests/test_torch_rans_lanes.py pins each one.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -265,18 +270,28 @@ def rans_decode_aligned(refills: torch.Tensor, states: torch.Tensor,
     out = torch.empty((B, steps, N), dtype=torch.uint8, device=dev)
     if B and steps and N:
         lib = _build.load()
+        args = (refills.data_ptr(), refills.stride(0))
+        instance = ALIGNED_INSTANCES[lib.jsp_rans_aligned_instance(*args, N)]
         with torch.cuda.device(dev):
             rc = lib.jsp_rans_decode_aligned(
-                refills.data_ptr(), refills.stride(0), states.data_ptr(),
-                states.stride(0), freq.data_ptr(), freq.stride(0),
-                out.data_ptr(), out.stride(0), B, N, steps,
+                *args, states.data_ptr(), states.stride(0), freq.data_ptr(),
+                freq.stride(0), out.data_ptr(), out.stride(0), B, N, steps,
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, what)
         rans_decode_aligned.launches += 1
+        rans_decode_aligned.by_instance[instance] += 1
+        rans_decode_aligned.last_instance = instance
     return out
 
 
+#: the aligned kernel's instances, by jsp_rans_aligned_instance's answer:
+#: refills staged in shared memory (16-byte aligned refills and batch
+#: stride, N % 8 == 0), or byte loads from device memory
+ALIGNED_INSTANCES = ("bytes", "staged")
 rans_decode_aligned.launches = 0  # kernel launches (the plain path does not count)
+# the launches per instance, and the instance of the last one
+rans_decode_aligned.by_instance = collections.Counter()
+rans_decode_aligned.last_instance = None
 
 
 def rans_decode_packed(lane_bytes: torch.Tensor, states: torch.Tensor,
@@ -303,6 +318,8 @@ def rans_decode_packed(lane_bytes: torch.Tensor, states: torch.Tensor,
     if B and not lane_bytes[0].is_contiguous():
         raise ValueError(f"{what}: each stream's lane_bytes must be a "
                          f"contiguous [N, L]")
+    if L > 2**31 - 64:  # the kernel's byte positions in a row are int
+        raise ValueError(f"{what}: lanes of {L} bytes are too long")
     _check_tables(what, states, freq, B, N)
     out = torch.empty((B, n_steps, N), dtype=torch.uint8, device=dev)
     if B and n_steps and N:

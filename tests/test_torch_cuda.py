@@ -18,6 +18,7 @@ from test_torch_bc_cases import BC_CASES, run_bc_case
 from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
     rows_view
 from test_torch_lane_cases import LANE_CASES, run_lane_case
+from test_torch_rans_cases import RANS_CASES, offset_view, rans_case_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -592,6 +593,45 @@ def test_rans_aligned_kernel_on_odd_refill_addresses(dev):
     got = rans_decode_aligned(odd, states.to(dev), freq.to(dev))
     assert torch.equal(got.cpu(), rans_decode_aligned_ref(refills, states,
                                                           freq))
+
+
+@pytest.mark.parametrize("case", sorted(RANS_CASES))
+def test_rans_kernel_cases(dev, case):
+    """Both decodes on each of RANS_CASES against their twins, bit for bit,
+    the inputs on the card at the case's offsets and strides; the aligned
+    decode ran the case's instance."""
+    from jsplayer_tpu_torch.kernels.rans_lanes import (
+        rans_decode_aligned, rans_decode_aligned_ref, rans_decode_packed,
+        rans_decode_packed_ref)
+
+    _, _, steps, _, rf_off, ln_off, pad, instance = RANS_CASES[case]
+    refills, lanes, states, freq = rans_case_inputs(case)
+    rf = offset_view(refills, rf_off, device=dev)
+    ln = offset_view(lanes, ln_off, pad, device=dev)
+    st, fq = states.to(dev), freq.to(dev)
+    before = rans_decode_aligned.by_instance[instance]
+    got_a = rans_decode_aligned(rf, st, fq)
+    got_p = rans_decode_packed(ln, st, fq, steps)
+    torch.cuda.synchronize()
+    assert rans_decode_aligned.last_instance == instance
+    assert rans_decode_aligned.by_instance[instance] == before + 1
+    assert torch.equal(got_a.cpu(), rans_decode_aligned_ref(refills, states,
+                                                            freq))
+    assert torch.equal(got_p.cpu(), rans_decode_packed_ref(lanes, states,
+                                                           freq, steps))
+
+
+@pytest.mark.parametrize("B,N,steps", [(1, 1, 5), (2, 130, 77), (4, 4096, 40)])
+def test_rans_chain_probe(dev, B, N, steps):
+    """The chain probe (experiments/lane_step.chain_probe) against its twin
+    on random u32 states and the grid's tables."""
+    from jsplayer_tpu_torch.experiments.lane_step import (chain_probe,
+                                                          chain_probe_ref)
+
+    _, _, states, freq = rans_inputs(B, N, 1, 0, B * N + steps)
+    got = chain_probe(states.to(dev), freq.to(dev), steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), chain_probe_ref(states, freq, steps))
 
 
 @pytest.mark.parametrize("n_lanes", [1, 8, 64, 128])

@@ -306,7 +306,7 @@ def test_experiments_run_without_importing_jax():
     assert proc.stdout.split() == [
         "ok", "bc_step", "block_step", "common", "exp_model_fusion2",
         "exp_pallas_bisect", "exp_pallas_ds", "exp_pallas_ds2", "kmv_step",
-        "lane_step", "probe_step", "probes", "streams"]
+        "lane_runs", "lane_step", "probe_step", "probes", "streams"]
 
 
 def test_experiment_kernels_never_take_the_plain_path(no_cuda):

@@ -128,6 +128,78 @@ def test_batched_decodes_are_per_stream_decodes():
     assert int(cursors.max()) <= 2 * steps
 
 
+# -- mirrors of csrc/rans_lanes.cu's arithmetic ------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def refill_select(x, b0, b1):
+    """The kernels' one-select refill (numpy u64 holding u32): x < 2^15
+    takes x << 16 | b0 << 8 | b1, else x < 2^23 takes x << 8 | b0, else x."""
+    two = ((x << 16) | (b0 << 8) | b1) & M32
+    one = ((x << 8) | b0) & M32
+    return np.where(x < 2**15, two, np.where(x < P.RANS_L, one, x))
+
+
+@pytest.mark.parametrize("b0,b1", [(0, 0), (255, 255), (0x5A, 0xC3),
+                                   (1, 254)])
+def test_one_select_refill_is_the_twins_two_refills(b0, b1):
+    """For every x < 2^24 and the corners 2^15 +- 1, 2^23 +- 1, 2^31 and
+    2^32 - 1: one select equals the twin's two _refill calls (the second
+    refill fires only where the first left x < 2^23, which is x < 2^15)."""
+    corners = np.array([2**15 - 1, 2**15, 2**15 + 1, 2**23 - 1, 2**23,
+                        2**23 + 1, 2**31, 2**32 - 1], dtype=np.uint64)
+    chunks = [np.arange(s, s + 2**22, dtype=np.uint64)
+              for s in range(0, 2**24, 2**22)] + [corners]
+    for x in chunks:
+        got = refill_select(x, np.uint64(b0), np.uint64(b1))
+        t = torch.from_numpy(x.astype(np.int64))
+        t, _ = P._refill(t, b0)
+        t, _ = P._refill(t, b1)
+        np.testing.assert_array_equal(got.astype(np.int64), t.numpy())
+
+
+def slot_tables(freq):
+    """Mirror of the kernels' table build: each symbol marks its first slot
+    cum[s], a running max over the 4096 slots gives each slot's symbol; the
+    slot word is freq[s] | (slot - cum[s]) << 13 → (words u32 [4096],
+    symbols u8 [4096])."""
+    f = freq.astype(np.int64)
+    cum = np.concatenate([[0], np.cumsum(f)])
+    marks = np.zeros(P.PROB_SCALE, dtype=np.int64)
+    ok = cum[:256] < P.PROB_SCALE
+    marks[cum[:256][ok]] = np.arange(256)[ok]
+    sym = np.maximum.accumulate(marks)
+    slot = np.arange(P.PROB_SCALE)
+    words = (f[sym] | (slot - cum[sym]) << 13).astype(np.uint32)
+    return words, sym.astype(np.uint8)
+
+
+@pytest.mark.parametrize("dist", DISTS + ["pad"])
+def test_slot_tables_decode_every_slot_as_the_twin(dist):
+    """Every slot, under high parts 0, random and 2^20 - 1: the mirror's
+    symbol and its update x = (e & 0x1FFF) * (x >> 12) + (e >> 13) (mod
+    2^32) equal _decode_symbol's, on the grid's tables and the pad row."""
+    freq = tables(dist)
+    words, sym = slot_tables(freq)
+    assert int(words.max() & 0x1FFF) <= P.PROB_SCALE
+    assert int((words >> 13).max()) < P.PROB_SCALE
+    rng = np.random.default_rng(seed_of("slots", dist))
+    slot = np.arange(P.PROB_SCALE, dtype=np.uint64)
+    for hi in (np.zeros(P.PROB_SCALE, np.uint64),
+               rng.integers(0, 2**20, P.PROB_SCALE).astype(np.uint64),
+               np.full(P.PROB_SCALE, 2**20 - 1, np.uint64)):
+        x = (hi << np.uint64(12)) | slot
+        e = words.astype(np.uint64)
+        got = ((e & np.uint64(0x1FFF)) * (x >> np.uint64(12))
+               + (e >> np.uint64(13))) & np.uint64(M32)
+        f, cum = P._tables(torch.from_numpy(freq)[None])
+        want_s, want_x = P._decode_symbol(
+            torch.from_numpy(x.astype(np.int64))[None], f, cum)
+        np.testing.assert_array_equal(sym, want_s[0].numpy())
+        np.testing.assert_array_equal(got.astype(np.int64), want_x[0].numpy())
+
+
 @pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 5000])
 def test_round_trip_helpers(n):
     """roundtrip_decode and roundtrip_decode_aligned on the CPU recover the
