@@ -40,16 +40,40 @@ step with the most motion and over stream 0's B=1 steps; runs
       frames + model tensors;
   (j) lane, rans payload, dense, frames + model tensors
 
-(frames equal to the source frames on their low 24 bits); and, after the
-validate phase, rans_decode_aligned and rans_decode_packed (csrc/
+(frames equal to the source frames on their low 24 bits).  The kmv_sparse
+transport: kmv_sparse_compose (csrc/kmv_sparse.cu) against its twin on a
+random B=4 1080p step (experiments/sparse_step.step_inputs: clamped edge
+tiles overlapping the row above, indices that wrap or fall outside the
+rows, wrapping vectors, an unchanged stream) and on the P-frame step with
+the most tiles of the port's native sparse emission of the streams; runs
+
+  (k) kmv_sparse, native branch, windows snapped to the keyframes (they
+      lead windows and ship as the scans' dense init), frames + ds2 model
+      tensors;
+  (l) the same with sparse_lane_payload=True: the tiles rANS-coded on the
+      host and decoded by rans_decode_packed, its ingest route.
+
+MSVideo1: msv1_paint (csrc/msv1_paint.cu, one launch a window) against its
+twin on a random B=8 CIF window of 64 steps; runs
+
+  (m) MSV1 16-bit CIF (352x288), B=8 x 128 frames;
+  (n) MSV1 8-bit palettized 320x240 with MP3 tracks, B=8 x 128 frames,
+
+both made by the port's encode/msv1_enc.py (a pool of 4 streams of
+16-frame periods led by a keyframe: experiments/msv1_step), each pool
+stream's frames decoded by the port's host oracle (codecs/msvideo1)
+against their source first, then
+every ingested frame against its source frame, every model tensor against
+the plain epilogue and each window's significance against the twin's.
+After the validate phase, rans_decode_aligned and rans_decode_packed (csrc/
 rans_lanes.cu) against their twins at N=4096, B=4 on a dense 1080p window
 (experiments/lane_step.dense_rans, encoded once) and on random u32
 states, refills and lane bytes, each beside its chain bound (the time of
 csrc/rans_lanes.cu's chain probe on the same inputs, itself held against
 its twin) and the SM clock under load, then roundtrip_decode, the packed
-decode's route.  The aligned decode must take its staged instance there,
-in run (j) and in the validate legs.  The validate phase runs
-jsplayer_tpu_torch.validate's eight parity legs on the card.  Then phase
+decode's other route.  The aligned decode must take its staged instance
+there, in run (j) and in the validate legs.  The validate phase runs
+jsplayer_tpu_torch.validate's nine parity legs on the card.  Then phase
 (e), the ds2 experiments (jsplayer_tpu_torch.experiments):
 kmv_compose_ds2 (csrc/kmv_compose.cu's fused compose+ds2
 instance) on random inputs and every mode of csrc/ds_probe.cu at its
@@ -109,6 +133,10 @@ from jsplayer_tpu_torch.experiments.common import (HBM_BYTES_PER_MS,
 # mid-GOP -> PADDED
 WINDOW = 64
 DEV = torch.device("cuda", 0)  # the one card the script needs
+# runs (m) and (n): MSV1 16-bit CIF and 8-bit palettized 320x240 (BASELINE
+# configs 1 and 2), MSV1_B streams of T frames each
+MSV1_RUNS = (("m", 16, 352, 288), ("n", 8, 320, 240))
+MSV1_B = 8
 
 
 def log(msg: str) -> None:
@@ -330,8 +358,10 @@ def kernel_counters() -> dict:
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
     from jsplayer_tpu_torch.kernels.sp_motion_mxu import sp_motion_mxu
     from jsplayer_tpu_torch.kernels.sp_motion_pallas import sp_motion_patch
+    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
     from jsplayer_tpu_torch.kernels.sp_recon import (bc_compose, kmv_compose,
                                                      kmv_compose_ds2,
+                                                     kmv_sparse_compose,
                                                      sp_compose_general)
 
     return {"kmv_compose": kmv_compose, "ds2_pack": ds2_pack,
@@ -341,7 +371,9 @@ def kernel_counters() -> dict:
             "kmv_compose_ds2": kmv_compose_ds2, "ds_probe": ds_probe,
             "bc_compose": bc_compose, "lane_compose": lane_compose,
             "rans_decode_aligned": rans_decode_aligned,
-            "rans_decode_packed": rans_decode_packed}
+            "rans_decode_packed": rans_decode_packed,
+            "kmv_sparse_compose": kmv_sparse_compose,
+            "msv1_paint": msv1_paint}
 
 
 def count_launches(fn):
@@ -1073,6 +1105,260 @@ def phase_lane_runs(card: str, conts, src, models) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The kmv_sparse transport: kmv_sparse_compose, runs (k) and (l)
+
+def phase_sparse_kernel(card: str) -> dict:
+    """kmv_sparse_compose against its twin on a random B=4 1080p step
+    (experiments/sparse_step.step_inputs: tiles at the host's clamped
+    starts, the bottom row overlapping the row above, indices that wrap or
+    fall outside the rows, wrapping vectors and -2^31, codes past 2+K,
+    stream 2 unchanged), bit for bit."""
+    from jsplayer_tpu_torch.experiments.sparse_step import (sparse_bytes,
+                                                            step_inputs)
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_sparse_compose,
+                                                     kmv_sparse_compose_ref)
+
+    prev, args, chg = step_inputs(DEV)
+    got = kmv_sparse_compose(prev, *args, chg)
+    want = kmv_sparse_compose_ref(prev, *args, chg)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    require(torch.equal(got, want), "kmv_sparse_compose bit-exact vs plain")
+    out = torch.empty_like(prev)
+
+    def step():
+        kmv_sparse_compose(prev, *args, chg, out=out)
+
+    return dict(max_abs_err=err, **step_report(
+        "kmv_sparse_compose", f"[{B},{Y},{X}] K=2 random step, M="
+        f"{args[3].shape[1]}, S={args[2].shape[0]}, bit-exact", card,
+        time_ms(step), graph_ms(step),
+        time_ms(lambda: kmv_sparse_compose_ref(prev, *args, chg), iters=2,
+                warmup=1), sparse_bytes(prev, args, chg)))
+
+
+def phase_sparse_step(card: str, chunks, src) -> dict:
+    """kmv_sparse_compose on the P-frame step with the most tiles of the
+    port's native sparse emission of the streams (the tiles run (k)
+    ships), against its twin and the source frames."""
+    from jsplayer_tpu_torch.experiments.sparse_step import (captured_step,
+                                                            sparse_bytes)
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_sparse_compose,
+                                                     kmv_sparse_compose_ref)
+
+    t0 = time.perf_counter()
+    t, prev, args, chg, want_frames = captured_step(chunks, src, DEV)
+    log(f"native sparse emission of {B} x {T} frames, frame by frame in "
+        f"{B} threads: {time.perf_counter() - t0:.3f} s")
+    got = kmv_sparse_compose(prev, *args, chg)
+    want = kmv_sparse_compose_ref(prev, *args, chg)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "kmv_sparse_compose captured step "
+            "bit-exact vs plain")
+    require(torch.equal(got, want_frames), "kmv_sparse_compose captured "
+            "step composes the source frames")
+    out = torch.empty_like(prev)
+
+    def step():
+        kmv_sparse_compose(prev, *args, chg, out=out)
+
+    return dict(step=t, **step_report(
+        "kmv_sparse_compose", f"[{B},{Y},{X}] captured step {t} (M="
+        f"{args[3].shape[1]}, S={args[2].shape[0]}), bit-exact", card,
+        time_ms(step), graph_ms(step),
+        time_ms(lambda: kmv_sparse_compose_ref(prev, *args, chg), iters=2,
+                warmup=1), sparse_bytes(prev, args, chg)))
+
+
+def check_dense(batches, src, models, what: str) -> None:
+    """Dense windows (the last one padded past the streams' end with their
+    last frame): every frame equal to its source frame, every model tensor
+    to the plain epilogue, the windows tiling the streams."""
+    n_real = 0
+    for w in batches:
+        t0, n = w["start_frame"], w["frames_u32"].shape[1]
+        real = min(n, T - t0)
+        for b in range(len(src)):
+            fr = w["frames_u32"][b]
+            require(torch.equal(fr[:real], src[b][t0:t0 + real].to(DEV)),
+                    f"{what} stream {b} window @{t0} frames == source "
+                    f"frames")
+            require(bool((fr[real:] == fr[real - 1]).all()),
+                    f"{what} stream {b} window @{t0} pads with its last "
+                    f"frame")
+            check_model(w["model_input"][b][:real],
+                        models[b][t0:t0 + real],
+                        f"{what} stream {b} window @{t0}")
+        n_real += real
+    require(n_real == T, f"{what} covers {T} frames")
+
+
+def phase_sparse_runs(card: str, avis, src, models) -> dict:
+    """Runs (k) and (l): sp_device_path "kmv_sparse" on the native branch,
+    windows snapped to the shared keyframes (still_elision=True: the
+    keyframes lead windows [0, 40) and [40, 104), so they ship as the
+    scans' dense init), frames and ds2 model tensors; (l) with the tiles
+    rANS-coded on the host and decoded by rans_decode_packed →
+    {kernel: launches over both runs}."""
+    total = {}
+    for name, lane in (("k", False), ("l", True)):
+        (batches, _, dt), launches = count_launches(
+            lambda: run_ingest(avis, sp_device_path="kmv_sparse",
+                               sparse_lane_payload=lane))
+        log(f"run ({name}) kmv_sparse{' lane payload' if lane else ''}: "
+            f"{len(batches)} windows @{[w['start_frame'] for w in batches]}"
+            f", {B * T} frames in {dt:.3f} s = {B * T / dt:.1f} delivered "
+            f"frames/s ({card}); launches {launches}")
+        require_only(launches, ("kmv_sparse_compose", "ds2_pack")
+                     + (("rans_decode_packed",) if lane else ()),
+                     f"run ({name})")
+        check_dense(batches, src, models, f"run ({name})")
+        log(f"run ({name}): every stream's frames and model tensors "
+            f"bit-exact")
+        for k, v in launches.items():
+            if not isinstance(v, dict):
+                total[k] = total.get(k, 0) + v
+        total[f"run_{name}"] = launches
+        del batches
+    return total
+
+
+# ---------------------------------------------------------------------------
+# MSVideo1: msv1_paint, runs (m) and (n)
+
+def phase_msv1_kernel(card: str) -> dict:
+    """msv1_paint against its twin on a random B=8 CIF window of 64 steps
+    (experiments/msv1_step.window_inputs: a tenth of the blocks painted,
+    sel 0-8), frames and diff flags bit for bit."""
+    from jsplayer_tpu_torch.experiments.msv1_step import (msv1_bytes,
+                                                          window_inputs)
+    from jsplayer_tpu_torch.kernels.msv1_paint import (msv1_paint,
+                                                       msv1_paint_ref)
+
+    init, bt, sel, col = window_inputs(DEV)
+    frames, diff = msv1_paint(init, bt, sel, col, 0)
+    want_f, want_d = msv1_paint_ref(init, bt, sel, col, 0)
+    torch.cuda.synchronize()
+    err = max_abs_err(frames, want_f)
+    require(torch.equal(frames, want_f) and torch.equal(diff, want_d),
+            "msv1_paint bit-exact vs plain (frames and diff)")
+    out = torch.empty_like(frames)
+
+    def call():
+        msv1_paint(init, bt, sel, col, 0, out=out)
+
+    Bm, Tm = bt.shape[:2]
+    res = dict(max_abs_err=err, steps=Tm, **step_report(
+        "msv1_paint", f"{list(frames.shape)} random window (one launch), "
+        f"bit-exact", card, time_ms(call), graph_ms(call),
+        time_ms(lambda: msv1_paint_ref(init, bt, sel, col, 0), iters=2,
+                warmup=1), msv1_bytes(init, bt, frames)))
+    log(f"msv1_paint: {res['graph_ms'] / Tm * 1e3:.2f} us a step of {Bm} "
+        f"CIF frames as a CUDA graph ({card})")
+    return res
+
+
+def msv1_twin_window(s, w, bits, X_, Y_, prev) -> tuple:
+    """The twin's (frames, significance) of one MSV1 window of run (m) or
+    (n): the window's frames parsed again by the native parser, then
+    msv1_paint_ref and signif_from on the card from `prev` (the window's
+    carry-in: the source frames before it, zeros for the first)."""
+    from jsplayer_tpu_torch import native
+    from jsplayer_tpu_torch.codecs.msvideo1 import palette_to_u32
+    from jsplayer_tpu_torch.kernels import msv1_paint as M
+
+    t0, n = w["start_frame"], w["frames_u32"].shape[1]
+    pal = palette_to_u32(s["palettes"][0]) if bits == 8 else None
+    parsed = [[native.native_msv1_parse(c, X_, Y_, pal=pal)
+               for c in (ch[t0:t0 + n] + [b""] * n)[:n]]
+              for ch in s["chunks"]]
+    bt, sel, col, chg = (np.stack([np.stack([p[i] for p in ps])
+                                   for ps in parsed]) for i in range(4))
+    dev = [torch.from_numpy(np.ascontiguousarray(
+        a.view(np.int32) if a.dtype == np.uint32 else a)).to(DEV)
+        for a in (bt, M.sel_to_plane(sel, Y_, X_), col, chg)]
+    frames, diff = M.msv1_paint_ref(prev, *dev[:3], 0)
+    valid = torch.full((len(s["chunks"]),), t0 > 0, device=DEV)
+    return frames, M.signif_from(dev[0], dev[3], valid, diff, 0, X_ // 4)
+
+
+def phase_msv1_runs(card: str) -> dict:
+    """Runs (m) MSV1 16-bit CIF (352x288) and (n) MSV1 8-bit palettized
+    320x240 with MP3 tracks (BASELINE configs 1-2), B=8 x 128 frames made
+    by the port's msv1_enc (experiments/msv1_step.msv1_streams), frames and
+    ds2 model tensors: each pool stream's frames checked by the port's host
+    oracle (codecs/msvideo1) against their source, then every ingested
+    frame against its source frame, every model tensor against the plain
+    CPU epilogue, and the significance against the twin's → {kernel:
+    launches over both runs}."""
+    from jsplayer_tpu_torch.codecs.msvideo1 import (MSVideo1_8bit,
+                                                    MSVideo1_16bit)
+    from jsplayer_tpu_torch.core.source import MemorySource
+    from jsplayer_tpu_torch.experiments.msv1_step import msv1_streams
+    from jsplayer_tpu_torch.kernels.rgb_convert import to_model_input
+    from jsplayer_tpu_torch.pipeline.ingest import StreamReader
+
+    Bm, total = MSV1_B, {}
+    for name, bits, X_, Y_ in MSV1_RUNS:
+        t0 = time.perf_counter()
+        s = msv1_streams(bits, Bm, T, X_, Y_)
+        P_ = s["period"]
+        log(f"run ({name}) streams: {Bm} x {T} MSV1 {bits}-bit {X_}x{Y_} "
+            f"frames ({s['pool']} distinct streams of {P_}-frame periods led "
+            f"by a keyframe) encoded in {time.perf_counter() - t0:.3f} s")
+        for b in range(s["pool"]):
+            dec = (MSVideo1_16bit(X_, Y_) if bits == 16
+                   else MSVideo1_8bit(X_, Y_, s["palettes"][b]))
+            dec.preinit(0)
+            for t, c in enumerate(s["chunks"][b][:P_]):
+                dst = np.zeros(X_ * Y_, dtype=np.uint32)
+                if dec.is_key_frame(c):
+                    dec.decompress_i(c, dst)
+                else:
+                    dec.decompress_p(c, dst)
+                require(np.array_equal(dec.previous_frame(),
+                                       s["frames"][b][t]),
+                        f"run ({name}) stream {b} frame {t}: the host "
+                        f"oracle decodes the source frame")
+        if bits == 8:
+            tracks = [StreamReader(MemorySource(a)).audio_track
+                      for a in s["avis"]]
+            require(all(tr is not None and tr.sections for tr in tracks),
+                    f"run ({name}) every stream's MP3 track parses")
+        srcs = [torch.from_numpy(np.stack([s["frames"][b][t % P_]
+                                           for t in range(T)])
+                                 .view(np.int32).reshape(T, Y_, X_))
+                for b in range(Bm)]
+        models = [to_model_input(f, downscale=2).view(torch.int16).to(DEV)
+                  for f in srcs]
+        (batches, _, dt), launches = count_launches(
+            lambda: run_ingest(s["avis"], still_elision=False))
+        log(f"run ({name}) MSV1 {bits}-bit {X_}x{Y_}: {len(batches)} windows"
+            f", {Bm * T} frames in {dt:.3f} s = {Bm * T / dt:.1f} delivered "
+            f"frames/s ({card}); launches {launches}")
+        require_only(launches, ("msv1_paint", "ds2_pack"), f"run ({name})")
+        require(launches["msv1_paint"] == len(batches),
+                f"run ({name}) one msv1_paint launch a window")
+        check_dense(batches, srcs, models, f"run ({name})")
+        prev = torch.zeros((Bm, Y_, X_), dtype=torch.int32, device=DEV)
+        for w in batches:
+            frames, sig = msv1_twin_window(s, w, bits, X_, Y_, prev)
+            require(torch.equal(frames, w["frames_u32"])
+                    and torch.equal(sig, w["significant"]),
+                    f"run ({name}) window @{w['start_frame']} frames and "
+                    f"significance == the plain twin's")
+            prev = w["frames_u32"][:, -1]
+        log(f"run ({name}): every stream's frames, model tensors and "
+            f"significance bit-exact")
+        for k, v in launches.items():
+            if not isinstance(v, dict):
+                total[k] = total.get(k, 0) + v
+        total[f"run_{name}"] = launches
+        del batches, srcs, models
+    return total
+
+
 def phase_rans_kernels(card: str) -> tuple[dict, dict]:
     """Both rANS decodes against their twins at N=4096 lanes, B=4, on the
     dense 1080p window (experiments/lane_step.dense_rans: encoded once by
@@ -1152,7 +1438,7 @@ def phase_rans_kernels(card: str) -> tuple[dict, dict]:
 
 
 def phase_validate(card: str) -> dict:
-    """jsplayer_tpu_torch.validate's eight parity legs on the card, each
+    """jsplayer_tpu_torch.validate's nine parity legs on the card, each
     true, each through its kernel."""
     from jsplayer_tpu_torch import validate
 
@@ -1163,8 +1449,8 @@ def phase_validate(card: str) -> dict:
     require(set(res) == set(validate.LEGS) and all(res.values()),
             f"every validate leg true ({res})")
     for k in ("sp_compose_general", "sp_motion_patch", "sp_motion_mxu",
-              "kmv_compose", "bc_compose", "lane_compose",
-              "rans_decode_aligned"):
+              "kmv_compose", "kmv_sparse_compose", "bc_compose",
+              "lane_compose", "rans_decode_aligned"):
         require(launches[k] > 0, f"the validate legs launched {k}")
     require_staged(launches, "the validate legs")
     return res
@@ -1466,11 +1752,23 @@ def main() -> int:
     lane = phase_lane_runs(card, conts, src, models)
     launches.update(lane_compose=lane["lane_compose"],
                     rans_decode_aligned=lane["rans_decode_aligned"])
-    del avis, frames, chunks, src, models, conts
+    del conts
+    kernels["kmv_sparse_compose"] = phase_sparse_kernel(card)
+    kernels["kmv_sparse_compose"]["captured"] = phase_sparse_step(
+        card, chunks, src)
+    sparse = phase_sparse_runs(card, avis, src, models)
+    launches["kmv_sparse_compose"] = sparse["kmv_sparse_compose"]
+    del avis, frames, chunks, src, models
+    kernels["msv1_paint"] = phase_msv1_kernel(card)
+    msv1 = phase_msv1_runs(card)
+    launches["msv1_paint"] = msv1["msv1_paint"]
     phase_validate(card)
     rans, rt = phase_rans_kernels(card)
     kernels.update(rans)
-    launches["rans_decode_packed"] = rt["rans_decode_packed"]
+    # the packed decode's ingest route is run (l); roundtrip_decode its other
+    launches["rans_decode_packed"] = sparse["rans_decode_packed"]
+    kernels["rans_decode_packed"]["roundtrip_launches"] = \
+        rt["rans_decode_packed"]
 
     kernels.update(phase_experiment_kernels(card))
     stream = load_bench_mix()
@@ -1508,12 +1806,18 @@ def main() -> int:
         "rans_decode_aligned": ("jsplayer_tpu_torch/csrc/rans_lanes.cu",
                                 "jsplayer_tpu/kernels/rans_lanes.py:195"),
         "rans_decode_packed": ("jsplayer_tpu_torch/csrc/rans_lanes.cu",
-                               "jsplayer_tpu/kernels/rans_lanes.py:102")}
+                               "jsplayer_tpu/kernels/rans_lanes.py:102"),
+        "kmv_sparse_compose": ("jsplayer_tpu_torch/csrc/kmv_sparse.cu",
+                               "jsplayer_tpu/kernels/sp_recon.py:738"),
+        "msv1_paint": ("jsplayer_tpu_torch/csrc/msv1_paint.cu",
+                       "jsplayer_tpu/kernels/msv1_paint.py:45,69")}
     ref = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jsplayer_tpu", "jax"))
     require(not ref, f"the run imported nothing of jax or jsplayer_tpu "
             f"({ref})")
     log(f"total {time.perf_counter() - t_all:.3f} s")
+    for r in kernels.values():  # the share of the bound, by the graph time
+        r.setdefault("share", r["bound_ms"] / r.get("graph_ms", r["ms"]))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": routes[name][0],
          "replaces": routes[name][1], "launches": launches[name],

@@ -2,12 +2,14 @@
 
   python -m jsplayer_tpu_torch ingest a.avi b.avi --device cuda
   python -m jsplayer_tpu_torch ingest a.jlv b.jlv --device cuda
+  python -m jsplayer_tpu_torch ingest a.avi b.avi --path kmv_sparse --lane-payload
 
 Flags and the JSON result line are those of ``python -m jsplayer_tpu
 ingest``, plus --device.  Lane containers (.jlv, made by
 ``jsplayer_tpu_torch.transcode.transcode_to_lane``) take the lane path
-with or without ``--path lane``.  The other subcommands of the JAX package
-are not ported yet.
+with or without ``--path lane``; MSVideo1 AVIs take the MSV1 paint path
+(16-bit, or 8-bit palettized) whatever ``--path`` says.  The other
+subcommands of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,10 +69,9 @@ def main(argv=None) -> int:
     a.add_argument("--path", default="kmv",
                    choices=("kmv", "bc", "kmv_sparse", "lane", "general",
                             "pallas"),
-                   help="SP device compose (kmv, bc, lane, general and "
-                        "pallas are ported; kmv_sparse raises "
-                        "NotImplementedError); lane-container sources take "
-                        "lane whatever this says")
+                   help="SP device compose; lane-container sources take "
+                        "lane and MSVideo1 AVIs their paint path whatever "
+                        "this says")
     a.add_argument("--downscale", type=int, default=1,
                    help="power-of-two box downsample in the model epilogue")
     a.add_argument("--model-only", action="store_true",
@@ -82,7 +83,8 @@ def main(argv=None) -> int:
                    help="windowed-memory demux: O(window) host residency"
                         " for multi-hour streams")
     a.add_argument("--lane-payload", action="store_true",
-                   help="kmv_sparse only (not ported)")
+                   help="kmv_sparse only: rANS-coded tile payload, "
+                        "entropy-decoded on the device")
     a.add_argument("--device", default="cuda",
                    help="torch device of the device stage (cuda raises "
                         "when there is no card; cpu runs the plain twins)")

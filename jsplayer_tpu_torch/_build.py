@@ -121,6 +121,14 @@ def load() -> ctypes.CDLL:
         lib.jsp_lane_compose.argtypes = ([p, i64, p, i64, i64, i32]
                                          + [p, i64] * 6
                                          + [i32, i32, i32, i32, p])
+        lib.jsp_kmv_sparse_compose.restype = i32
+        lib.jsp_kmv_sparse_compose.argtypes = ([p, i64] * 5 + [p, i64, i64]
+                                               + [p, i64] * 2
+                                               + [p, i32, i32, i32, i32, i32,
+                                                  p])
+        lib.jsp_msv1_paint.restype = i32
+        lib.jsp_msv1_paint.argtypes = ([p, i64] + [p, i64, i64] * 4
+                                       + [p, i32, i32, i32, i32, i32, p])
         lib.jsp_rans_decode_aligned.restype = i32
         lib.jsp_rans_decode_aligned.argtypes = [p, i64] * 4 + [i32, i32, i32,
                                                                p]

@@ -18,8 +18,9 @@ lane instance for tensors on the card, one launch for all B streams,
 and the plain twin ``lane_compose_ref`` for tensors on the CPU.
 
 The reference's gathers (``jnp.take``) wrap an index in [-n, -1] and read
-0xFFFFFFFF for any other index outside [0, n); ``take_rows`` and the kernel
-do the same.  A data pixel takes its row word as it is: no 0xFFFFFF mask
+0xFFFFFFFF for any other index outside [0, n); ``take_rows`` (kept in
+sp_recon.py, which the sparse tile gather shares) and the kernel do the
+same.  A data pixel takes its row word as it is: no 0xFFFFFF mask
 (compose_frame_lane's ``tp`` is unmasked, unlike compose_frame_bc's).
 u32 words are int32 tensors holding the bits (device.py).
 """
@@ -32,23 +33,7 @@ from .. import _build
 from ..device import cuda_launch_checks
 from . import rans_lanes
 from .sp_recon import (block_code_checks, compose_codes_ref, cpu_result,
-                       per_stream_ref, scan_steps, step_checks)
-
-
-def take_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """src[idx] along axis 0 with jnp.take's default semantics: an index in
-    [-n, -1] wraps, any other index outside [0, n) reads all ones
-    (0xFFFFFFFF) → idx.shape + src.shape[1:].  Like jnp.take, a non-empty
-    take from an empty axis raises IndexError."""
-    n = src.shape[0]
-    if n == 0 and idx.numel():
-        raise IndexError("a non-empty take from an empty axis")
-    i = idx.to(torch.int64)
-    i = torch.where(i < 0, i + n, i)
-    ok = (i >= 0) & (i < n)
-    got = src[i.clamp(0, max(n - 1, 0))]
-    ok = ok.reshape(tuple(ok.shape) + (1,) * (src.dim() - 1))
-    return torch.where(ok, got, torch.full_like(got, -1))
+                       per_stream_ref, scan_steps, step_checks, take_rows)
 
 
 def units_from_raw(payload: torch.Tensor) -> torch.Tensor:

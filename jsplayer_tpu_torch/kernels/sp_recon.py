@@ -22,7 +22,11 @@ experiments/exp_model_fusion2.py); the ingest scan does not use it.
 The bc transport has the same pixel rule with the block structure in two
 small per-block arrays (bcode, rloc) and a plane that holds only data-rect
 pixels: ``bc_compose`` is its step (csrc/bc_compose.cu, twin
-``bc_compose_ref``).
+``bc_compose_ref``).  The kmv_sparse transport keeps whole-block motion
+codes per block and ships the rest as final-content 16x16 tiles:
+``kmv_sparse_compose`` (csrc/kmv_sparse.cu, twin
+``kmv_sparse_compose_ref``) composes a step for all B streams from one flat
+tile array read through a per-stream index.
 
 The general block-command compose (``compose_frame``, the per-pixel
 gather of the reference's ``decode_sequence``/``decode_batch``) is mode
@@ -512,6 +516,207 @@ def decode_batch_bc_model(init_frames, plane, bcode, rect, mvk, changed,
 
 
 # ---------------------------------------------------------------------------
+# The kmv_sparse transport (csrc/kmv_sparse.cu)
+#
+# bcode [NB] u8 per block (0 copy, 2+k whole-block motion slot k; other
+# codes copy), K vectors, and M final-content 16x16 tiles written in order
+# at tile_yx (y0, x0), each start clamped into [0, Y-16] x [0, X-16] as
+# dynamic_update_slice clamps it: a pixel takes the LAST tile whose clamped
+# window covers it.  Tiles travel as one flat [S, 256] u32 array and a
+# per-frame index tile_idx [M] into it (the reference's ragged transport;
+# its dense [M, 16, 16] layout is a flat view with an identity index).
+# ---------------------------------------------------------------------------
+
+def take_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src[idx] along axis 0 with jnp.take's default semantics: an index in
+    [-n, -1] wraps, any other index outside [0, n) reads all ones
+    (0xFFFFFFFF) → idx.shape + src.shape[1:].  Like jnp.take, a non-empty
+    take from an empty axis raises IndexError."""
+    n = src.shape[0]
+    if n == 0 and idx.numel():
+        raise IndexError("a non-empty take from an empty axis")
+    i = idx.to(torch.int64)
+    i = torch.where(i < 0, i + n, i)
+    ok = (i >= 0) & (i < n)
+    got = src[i.clamp(0, max(n - 1, 0))]
+    ok = ok.reshape(tuple(ok.shape) + (1,) * (src.dim() - 1))
+    return torch.where(ok, got, torch.full_like(got, -1))
+
+
+def tile_start(v: int, n: int) -> int:
+    """Where dynamic_update_slice puts a 16-wide update starting at v along
+    an axis of n: a negative start counts from the end (v + n, its
+    allow_negative_indices default), then the start is clamped into
+    [0, n - 16]."""
+    if v < 0:
+        v += n
+    return min(max(v, 0), n - 16)
+
+
+def _tile_frame_check(what: str, Y: int, X: int) -> None:
+    if Y < 16 or X < 16:
+        raise ValueError(f"{what}: 16x16 tiles need a frame of at least "
+                         f"16x16, got {Y}x{X} (dynamic_update_slice "
+                         f"refuses a larger update)")
+
+
+def compose_frame_kmv_sparse_ref(prev, bcode, mvk, tiles, tile_yx
+                                 ) -> torch.Tensor:
+    """Plain twin of the reference's compose_frame_kmv_sparse, its ops one
+    for one: prev [Y, X] int32 bit view, bcode [NB] u8, mvk [K, 2] (mx,
+    my), tiles [M, 16, 16], tile_yx [M, 2] (y0, x0) → [Y, X].  The block
+    map and K wrapping rolls, then each tile in order at its clamped
+    start."""
+    Y, X = prev.shape
+    _tile_frame_check("compose_frame_kmv_sparse_ref", Y, X)
+    nbx = (X + 15) // 16
+    nby = bcode.shape[0] // nbx
+    bmap = block_broadcast(bcode.to(torch.int32), nby, nbx, Y, X)
+    out = prev
+    for k, (mx, my) in enumerate(mvk.tolist()):
+        shifted = torch.roll(prev, shifts=(_neg32(my), _neg32(mx)),
+                             dims=(0, 1))
+        out = torch.where(bmap == 2 + k, shifted, out)
+    out = out.clone()
+    for tile, (ty, tx) in zip(tiles, tile_yx.tolist()):
+        y0, x0 = tile_start(ty, Y), tile_start(tx, X)
+        out[y0:y0 + 16, x0:x0 + 16] = tile
+    return out
+
+
+def kmv_sparse_compose_ref(prev, bcode, mvk, tiles, tile_idx, tile_yx,
+                           changed) -> torch.Tensor:
+    """Plain twin of the batched step: prev [B, Y, X], bcode [B, NB], mvk
+    [B, K, 2], tiles [S, 256] (one flat array for every stream), tile_idx
+    [B, M] int32 rows of tiles (jnp.take's reads: [-S, -1] wraps, other
+    indices outside [0, S) read 0xFFFFFFFF), tile_yx [B, M, 2], changed [B]
+    → [B, Y, X] (unchanged streams copy prev)."""
+    def frame(prev_b, bc, mk, idx, yx):
+        return compose_frame_kmv_sparse_ref(
+            prev_b, bc, mk, take_rows(tiles, idx).reshape(-1, 16, 16), yx)
+
+    return per_stream_ref(frame, prev, changed, bcode, mvk, tile_idx,
+                          tile_yx)
+
+
+def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
+                       mvk: torch.Tensor, tiles: torch.Tensor,
+                       tile_idx: torch.Tensor, tile_yx: torch.Tensor,
+                       changed: torch.Tensor, out: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """One kmv_sparse scan step for every stream of a batch: prev [B, Y, X]
+    int32 bit views (Y, X >= 16), bcode [B, NB] u8, mvk [B, K, 2] int32,
+    tiles [S, 256] int32 (rows of 256 contiguous words, any row stride),
+    tile_idx [B, M] int32, tile_yx [B, M, 2] int32, changed [B] bool →
+    out [B, Y, X] (allocated unless given; it must not alias prev).
+
+    CUDA kernel csrc/kmv_sparse.cu for tensors on the card — one call for
+    all B streams: a fill of its per-cell scratch, the tile-owner pass and
+    the compose; the plain twin only for tensors on the CPU.  Strided views
+    such as bcode[:, t] of a window are fine where their rows are
+    contiguous."""
+    if prev.device.type == "cpu":
+        return cpu_result(kmv_sparse_compose_ref(
+            prev, bcode, mvk, tiles, tile_idx, tile_yx, changed), out)
+    what = "kmv_sparse_compose"
+    if out is None:
+        out = torch.empty_like(prev, memory_format=torch.contiguous_format)
+    cuda_launch_checks(what, tiles, tile_idx, tile_yx)
+    step_checks(what, prev, mvk, changed, out)
+    B, Y, X = prev.shape
+    _tile_frame_check(what, Y, X)
+    nb = math.prod(block_grid(Y, X))
+    if bcode.device != prev.device or bcode.dtype != torch.uint8:
+        raise TypeError(f"{what}: bcode must be a uint8 tensor on the "
+                        f"frames' device, got {bcode.dtype} on {bcode.device}")
+    if tuple(bcode.shape) != (B, nb) or bcode.stride(-1) != 1:
+        raise ValueError(f"{what}: bcode must be [{B}, {nb}] with "
+                         f"contiguous rows, got {tuple(bcode.shape)}")
+    if tiles.dim() != 2 or tiles.shape[1] != 256 or tiles.stride(1) != 1:
+        raise ValueError(f"{what}: tiles must be [S, 256] with contiguous "
+                         f"rows, got {tuple(tiles.shape)} strides "
+                         f"{tiles.stride()}")
+    M = tile_idx.shape[-1] if tile_idx.dim() == 2 else -1
+    if tuple(tile_idx.shape) != (B, M) or (M and tile_idx.stride(-1) != 1):
+        raise ValueError(f"{what}: tile_idx must be [{B}, M] with "
+                         f"contiguous rows, got {tuple(tile_idx.shape)}")
+    if tuple(tile_yx.shape) != (B, M, 2) or M and (
+            tile_yx.stride(-1) != 1 or tile_yx.stride(-2) != 2):
+        raise ValueError(f"{what}: tile_yx must be [{B}, {M}, 2] with "
+                         f"contiguous [M, 2], got {tuple(tile_yx.shape)}")
+    S = tiles.shape[0]
+    if S == 0 and B and M:
+        raise IndexError(f"{what}: a tile gather from zero rows (as "
+                         f"jnp.take refuses)")
+    if B and Y and X:
+        # per block cell: owner header and a list of partial tiles
+        cells = torch.empty((B, nb, 8), dtype=torch.int32, device=prev.device)
+        lib = _build.load()
+        with torch.cuda.device(prev.device):
+            rc = lib.jsp_kmv_sparse_compose(
+                prev.data_ptr(), prev.stride(0), mvk.data_ptr(),
+                mvk.stride(0), changed.data_ptr(), changed.stride(0),
+                out.data_ptr(), out.stride(0), bcode.data_ptr(),
+                bcode.stride(0), tiles.data_ptr(), S, tiles.stride(0),
+                tile_idx.data_ptr(), tile_idx.stride(0), tile_yx.data_ptr(),
+                tile_yx.stride(0), cells.data_ptr(), B, Y, X, mvk.shape[-2],
+                M, torch.cuda.current_stream(prev.device).cuda_stream)
+        _build.check(rc, what)
+        kmv_sparse_compose.launches += 1
+    return out
+
+
+kmv_sparse_compose.launches = 0  # kernel launches (the plain path does not count)
+
+
+def compose_frame_kmv_sparse(prev, bcode, mvk, tiles, tile_yx):
+    """Single-frame compose, the reference's signature: prev [Y, X], bcode
+    [NB] u8, mvk [K, 2], tiles [M, 16, 16], tile_yx [M, 2] → [Y, X]."""
+    M = tiles.shape[0]
+    chg = torch.ones(1, dtype=torch.bool, device=prev.device)
+    idx = torch.arange(M, dtype=torch.int32, device=prev.device)[None]
+    return kmv_sparse_compose(prev[None], bcode[None], mvk[None],
+                              tiles.reshape(M, 256), idx, tile_yx[None],
+                              chg)[0]
+
+
+def decode_batch_kmv_sparse_ragged(init_frames, bcode, mvk, tiles_flat,
+                                   tile_idx, tile_yx, changed):
+    """Ragged tile transport: init [B,Y,X], bcode [B,T,NB], mvk [B,T,K,2],
+    tiles_flat [S,256] (the window's real tiles and pad rows), tile_idx
+    [B,T,M] rows of tiles_flat, tile_yx [B,T,M,2], changed [B,T] → frames
+    [B,T,Y,X]; one kmv_sparse_compose call a step for all B, reading the
+    tiles through tile_idx (no [B,T,M,16,16] gather)."""
+    def step(prev, bc, mk, idx, yx, chg, out):
+        return kmv_sparse_compose(prev, bc, mk, tiles_flat, idx, yx, chg,
+                                  out=out)
+
+    return scan_steps(step, init_frames, (bcode, mvk, tile_idx, tile_yx),
+                      changed)
+
+
+def decode_batch_kmv_sparse(init_frames, bcode, mvk, tiles, tile_yx,
+                            changed):
+    """Batched sparse-kmv scan with dense tiles [B,T,M,16,16]: the ragged
+    scan over their flat view and an identity index."""
+    B, T, M = tiles.shape[:3]
+    idx = torch.arange(B * T * M, dtype=torch.int32,
+                       device=tiles.device).reshape(B, T, M)
+    return decode_batch_kmv_sparse_ragged(
+        init_frames, bcode, mvk, tiles.reshape(B * T * M, 256), idx, tile_yx,
+        changed)
+
+
+def decode_sequence_kmv_sparse(init_frame, bcode, mvk, tiles, tile_yx,
+                               changed):
+    """One stream: init [Y,X], bcode [T,NB], mvk [T,K,2], tiles
+    [T,M,16,16], tile_yx [T,M,2], changed [T] → frames [T,Y,X]."""
+    return decode_batch_kmv_sparse(init_frame[None], bcode[None], mvk[None],
+                                   tiles[None], tile_yx[None],
+                                   changed[None])[0]
+
+
+# ---------------------------------------------------------------------------
 # Block-command composes (csrc/sp_motion.cu): the general mode here, the
 # fused and mxu modes in sp_motion_pallas.py and sp_motion_mxu.py
 # ---------------------------------------------------------------------------
@@ -846,3 +1051,73 @@ def compact_arrays_batch(arrays, changed):
         valid[b, :c] = True
         outmap[b] = np.cumsum(changed[b]).astype(np.int32) - 1
     return tuple(outs), valid, outmap
+
+
+def prepare_kmv_sparse(bts, mv, rect, payload, K: int = 4, M: int | None = None,
+                       prev0=None):
+    """Host prep (numpy): → (bcode [T,NB] u8: 0 copy / 2+k motion-slot,
+    mvk [T,K,2], tiles [T,M,16,16] u32, tile_yx [T,M,2] i32).  Blocks with
+    data content (bts 1/2 subrect/gradient fills, ScreenPressor.hx:317-353)
+    and motion blocks demoted from the K slots become tiles; padding tiles
+    re-write block 0's final content (a no-op).
+
+    prev0: the decoded frame preceding payload[0] (the previous window's
+    last frame); without it frame 0's motion blocks can't pass the slot-
+    safety check and all ride as tiles."""
+    import numpy as _np
+
+    T, NB = bts.shape
+    Y, X = payload.shape[-2:]
+    nbx = (X + 15) // 16
+    assert K <= 8
+    mvk, group, demoted = derive_kmv_commands(bts, mv, rect, K)
+    # The sparse compose rolls WHOLE blocks (bcode is per block), but bts 4
+    # motion is rect-limited: a slot is safe iff the full-block roll
+    # reproduces the decoded block (256-pixel compare vs payload[t-1] per
+    # motion block — the whole-frame roll+reduction variant measured 2 s
+    # per 64-frame 1080p window; this is ~50 ms)
+    pay = payload & _np.uint32(0x00FFFFFF)
+    safe = _np.zeros((T, NB), dtype=bool)
+    prev0 = None if prev0 is None else (prev0 & _np.uint32(0x00FFFFFF))
+    for t in range(T):
+        prev = pay[t - 1] if t > 0 else prev0
+        if prev is None:
+            continue
+        for bi in _np.nonzero(group[t] >= 0)[0]:
+            by, bx = divmod(int(bi), nbx)
+            y1, y2 = by * 16, min(by * 16 + 16, Y)
+            x1, x2 = bx * 16, min(bx * 16 + 16, X)
+            mx, my = mv[t, bi]
+            if (y1 + my < 0 or y2 + my > Y or x1 + mx < 0 or x2 + mx > X):
+                continue
+            safe[t, bi] = bool(
+                (prev[y1 + my:y2 + my, x1 + mx:x2 + mx]
+                 == pay[t, y1:y2, x1:x2]).all())
+    mot = group >= 0
+    need_tile = (((bts > 0) & (bts != 3) & (bts != 4)) | demoted
+                 | (mot & ~safe))
+    counts = need_tile.sum(axis=1)
+    if M is None:
+        M = max(1, int(counts.max()))
+    if int(counts.max()) > M:
+        raise ValueError(f"M={M} < max tiles/frame {int(counts.max())}")
+    bcode = _np.zeros((T, NB), dtype=_np.uint8)
+    g = _np.where(demoted | ~safe, -1, group)
+    bcode[g >= 0] = (2 + g[g >= 0]).astype(_np.uint8)
+    tiles = _np.zeros((T, M, 16, 16), dtype=_np.uint32)
+    tile_yx = _np.zeros((T, M, 2), dtype=_np.int32)
+    for t in range(T):
+        blocks = _np.nonzero(need_tile[t])[0]
+        for m, bi in enumerate(blocks):
+            by, bx = divmod(int(bi), nbx)
+            # edge blocks: clamp the 16x16 window into the frame; the
+            # extra rows/cols re-write the neighbor's FINAL content
+            # (exact, since payload is the fully decoded frame)
+            y0, x0 = min(by * 16, Y - 16), min(bx * 16, X - 16)
+            tiles[t, m] = pay[t, y0:y0 + 16, x0:x0 + 16]
+            tile_yx[t, m] = (y0, x0)
+        # pad with block (0,0)'s final content — a no-op rewrite
+        if len(blocks) < M:
+            tiles[t, len(blocks):] = pay[t, :16, :16]
+            tile_yx[t, len(blocks):] = 0
+    return bcode, mvk, _np.ascontiguousarray(tiles), tile_yx

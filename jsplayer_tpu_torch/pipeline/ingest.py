@@ -1,9 +1,9 @@
 """Batched video ingestion on torch: AVI sources → model-input tensors.
 
-Counterpart of jsplayer_tpu/pipeline/ingest.py for its ScreenPressor
-paths.  N AVI streams are demuxed on the host and entropy-decoded (the
-native C++ decoder, or the pure-Python oracle where the native library is
-missing), then reconstructed on the device in windows.  Failures
+Counterpart of jsplayer_tpu/pipeline/ingest.py.  N AVI streams are
+demuxed on the host and entropy-decoded (the native C++ decoder, or the
+pure-Python oracle where the native library is missing), then
+reconstructed on the device in windows.  Failures
 quarantine per stream; decoded pixels never round-trip to the host between
 windows.
 
@@ -18,20 +18,34 @@ windows.
     commands (bts/mv/rect) and decoded frame (payload); the device runs the
     block-command scan, csrc/sp_motion.cu in its general or fused mode.
     As in the reference, these paths ignore still_elision and emit_frames.
+  * ``"kmv_sparse"``: the host ships per-block motion codes, K vectors and
+    final-content 16x16 tiles (the native decoder's emission, ragged: one
+    flat tile array a window, or the oracle's capture through
+    prepare_kmv_sparse), optionally rANS-coded (``sparse_lane_payload``:
+    kernels/lane_transport, decoded by csrc/rans_lanes.cu); window-leading
+    keyframes of every stream ride as the scan's init.  The device scan is
+    csrc/kmv_sparse.cu.  As in the reference, it ignores still_elision
+    (beyond keyframe-snapped window starts) and emit_frames.
   * ``"lane"``: lane containers (codecs/lane_format, made by
     transcode.transcode_to_lane), found by their magic without the flag
     too.  The host only slices the parsed windows into shared buckets; the
     device builds each window's unique rows (raw payload bytes, or the rANS
     decode of csrc/rans_lanes.cu) and scans with csrc/bc_compose.cu's lane
     instance (kernels/lane_recon), still-elided or dense.
+  * MSVideo1 AVIs (16-bit, and 8-bit palettized), found by their codec: the
+    host parses each frame into per-block commands (native or
+    codecs/msvideo1.parse_commands) and one launch of csrc/msv1_paint.cu
+    paints the window (kernels/msv1_paint); no elision, as in the
+    reference.
 
 The window dicts have the reference's keys, shapes and meaning.  u32
 planes (``frames_u32``) are int32 tensors holding the u32 bits (see
 device.py); ``outmap`` stays a numpy array as in the reference.
 
-What the reference does beyond these paths raises NotImplementedError
-naming its ROADMAP.md queue item: MSVideo1, other sp_device_path values,
-a mesh.
+A mesh (the reference's multi-device sharding) raises
+NotImplementedError naming its ROADMAP.md queue item.  The oracle branch
+of kmv_sparse repairs reference host fault 3 (ROADMAP.md §3): a stream
+quarantined mid-window keeps the frames it decoded before the failure.
 
 StreamReader, _StreamingFrames, _trim_window, _oracle_decode_step, the
 host-buffer pool and _pow2ceil are copies of the reference's: its module
@@ -50,12 +64,13 @@ from ..core.loader import DataLoaderAVISeq
 from ..core.source import ByteSource
 from ..core.types import CodecType, VideoInfo
 from ..device import resolve_device, to_device, torch_to_u32
-from ..kernels import sp_recon
+from ..codecs.msvideo1 import palette_to_u32, parse_commands
+from ..kernels import msv1_paint, sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
 from ..kernels.sp_motion_pallas import decode_batch_fused
 
-#: sp_device_path values the port runs; the others raise NotImplementedError
-PORTED_SP_PATHS = ("kmv", "bc", "general", "pallas", "lane")
+#: the sp_device_path values (the reference's); another raises ValueError
+PORTED_SP_PATHS = ("kmv", "bc", "kmv_sparse", "general", "pallas", "lane")
 
 # Process-wide host-buffer pool: window buffers are hundreds of MB and fresh
 # pages fault in slowly, so a new pipeline re-allocating them costs more
@@ -145,12 +160,15 @@ class IngestConfig:
     # unpack with rgb_convert.unpack_ds2
     model_packed: bool = False
     insignificant_lines: int = 0
-    # "kmv" (kmv transport), "bc" (block-command transport), "general" or
-    # "pallas" (captured block commands; both ignore still_elision and
-    # emit_frames), "lane" (lane containers; chosen without the flag when
-    # every source is one)
+    # "kmv" (kmv transport), "bc" (block-command transport), "kmv_sparse"
+    # (block codes + final-content tiles), "general" or "pallas" (captured
+    # block commands; these three ignore still_elision and emit_frames),
+    # "lane" (lane containers; chosen without the flag when every source is
+    # one)
     sp_device_path: str = "kmv"
     kmv_k: int = 2
+    # kmv_sparse only: rANS-code the tile payload on the host and decode it
+    # on the device (kernels/lane_transport, packed layout)
     sparse_lane_payload: bool = False
     # True: unchanged frames never enter the device scan; the dict gains
     # "outmap" (see the reference's field comment for the layouts)
@@ -293,9 +311,9 @@ class VideoIngestPipeline:
                     "batch mixes lane containers and AVIs — transcode or "
                     "split the batch")
         if self.cfg.sp_device_path not in PORTED_SP_PATHS:
-            raise NotImplementedError(
-                f"sp_device_path={self.cfg.sp_device_path!r} is not ported "
-                f"yet (ROADMAP.md queue 1: kmv_sparse item 11)")
+            raise ValueError(
+                f"unknown sp_device_path={self.cfg.sp_device_path!r}; one "
+                f"of {PORTED_SP_PATHS}")
         if self.cfg.mesh is not None:
             raise NotImplementedError(
                 "mesh sharding is not ported yet (ROADMAP.md queue 1 "
@@ -312,16 +330,14 @@ class VideoIngestPipeline:
             assert (r.info.width, r.info.height, r.info.codec) == (
                 info0.width, info0.height, info0.codec
             ), "streams in a batch must share geometry and codec"
-        if info0.codec != CodecType.SCREENPRESSOR:
-            raise NotImplementedError(
-                f"{info0.codec.value} streams are not ported yet "
-                f"(ROADMAP.md queue 1 item 12, MSV1)")
         self.info = info0
         # streaming mode: a lower bound that grows as windows demux
         self.nframes = max(len(r.frames) for r in self.readers)
         # 16bpp ScreenPressor decodes to 5-bit channels (scaled <<3 for
-        # the model, Manager.hx:363-370)
-        self._bpp16 = info0.bpp == 16
+        # the model, Manager.hx:363-370); MSV1 16-bit already resolves to
+        # 8-bit channels at parse
+        self._bpp16 = (info0.bpp == 16
+                       and info0.codec == CodecType.SCREENPRESSOR)
         #: per-stream AudioTrack (MP3 sections, PTS, time_loaded watermark)
         self.audio_tracks = [r.audio_track for r in self.readers]
         # per-stream failure quarantine: a malformed frame freezes that
@@ -342,7 +358,8 @@ class VideoIngestPipeline:
             k0 = self._range_keyframe(t0)
             return list(range(k0, t1, self.cfg.window))
         starts = list(range(0, self.nframes, self.cfg.window))
-        if self.cfg.still_elision and not self.cfg.streaming:
+        if (self.cfg.still_elision and not self.cfg.streaming
+                and self.info.codec == CodecType.SCREENPRESSOR):
             # keyframe-aligned scheduling: a window that starts mid-GOP
             # falls off the CONCAT elision layout onto the padded scans, so
             # snap each boundary DOWN to the latest keyframe within reach;
@@ -356,10 +373,17 @@ class VideoIngestPipeline:
         return starts
 
     def _keyframe_prober(self):
-        from ..codecs.screenpressor import ScreenPressor
-
+        """A decoder of the batch's codec, for its is_key_frame."""
         vi = self.info
-        return ScreenPressor(vi.width, vi.height, vi.bpp)
+        if vi.codec == CodecType.SCREENPRESSOR:
+            from ..codecs.screenpressor import ScreenPressor
+
+            return ScreenPressor(vi.width, vi.height, vi.bpp)
+        from ..codecs.msvideo1 import MSVideo1_8bit, MSVideo1_16bit
+
+        if vi.codec == CodecType.MSVC8:
+            return MSVideo1_8bit(vi.width, vi.height, vi.palette or b"")
+        return MSVideo1_16bit(vi.width, vi.height)
 
     def _keyframe_positions(self) -> list[int]:
         """Keyframe indices shared by EVERY stream in the batch (probed
@@ -416,7 +440,7 @@ class VideoIngestPipeline:
                         chunk.append(frames)
                     if not got_any:
                         break
-                    out = self._decode_sp_window(chunk, start)
+                    out = self._decode_window(chunk, start)
                     for r in self.readers:
                         r.release_upto(start + W)  # O(window) residency
                     self.nframes = max(self.nframes,
@@ -439,7 +463,7 @@ class VideoIngestPipeline:
                     frames = r.frames[start:end]
                     frames += [b""] * (W - len(frames))  # empty = no change
                     chunk.append(frames)
-                out = self._decode_sp_window(chunk, start)
+                out = self._decode_window(chunk, start)
                 if end - start < W:
                     out = _trim_window(out, end - start)
                 if pending is not None:
@@ -450,11 +474,16 @@ class VideoIngestPipeline:
         finally:
             self._release_buffers()
 
+    def _decode_window(self, chunk, start) -> dict:
+        if self.info.codec == CodecType.SCREENPRESSOR:
+            return self._decode_sp_window(chunk, start)
+        return self._decode_msv1_window(chunk, start)
+
     def _release_buffers(self):
         # uploads are blocking copies (device.to_device), so no device work
         # still reads these host pages
         for attr, key in (("_spbuf", ("sp",)), ("_kmvbuf", ("kmv",)),
-                          ("_bcbuf", ("bc",))):
+                          ("_sparsebuf", ("sparse",)), ("_bcbuf", ("bc",))):
             buf = getattr(self, attr, None)
             if buf is not None:
                 _pool_release(key + self._buf_key, buf)
@@ -510,6 +539,11 @@ class VideoIngestPipeline:
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
         K = self.cfg.kmv_k
         decs = self._sp_decoders()
+        if self.cfg.sp_device_path == "kmv_sparse":
+            if self._sp_native:
+                return self._decode_sp_window_sparse_native(chunk, start,
+                                                            decs)
+            return self._decode_sp_window_sparse(chunk, start, decs)
         if self.cfg.sp_device_path == "bc":
             return self._decode_sp_window_bc(chunk, start, decs)
         if self.cfg.sp_device_path == "kmv" and self._sp_native:
@@ -870,6 +904,274 @@ class VideoIngestPipeline:
         if self.cfg.emit_model_input:
             out["model_input"] = self._model_tensors(flat)
         return out
+
+    # -- the kmv_sparse transport ------------------------------------------------
+
+    def _decode_sp_window_sparse(self, chunk, start, decs) -> dict:
+        """kmv_sparse, pure-Python oracle branch: the oracle captures each
+        frame's commands and decoded frame, prepare_kmv_sparse turns them
+        into block codes, K vectors and final-content tiles (dense
+        [B, T, M, 16, 16], M padded to a power of two).  Window-leading
+        keyframes of every stream ship as the scan's init.
+
+        Reference host fault 3, repaired: a stream quarantined mid-window
+        keeps the commands of the frames it decoded before the failure
+        (prepared from [t0, t_fail)), then all-copy rows with changed
+        False, so its frames freeze at the last good one; the reference
+        drops those commands while their `changed` stays True, and writes a
+        zero tile into their top-left block."""
+        vi = self.info
+        X, Y = vi.width, vi.height
+        B, T = len(chunk), self.cfg.window
+        nb = ((X + 15) // 16) * ((Y + 15) // 16)
+        K = self.cfg.kmv_k
+        if getattr(self, "_spbuf", None) is None:
+            self._spbuf = _pool_acquire(("sp",) + self._buf_key, lambda: dict(
+                bts=np.zeros((B, T, nb), dtype=np.int32),
+                mv=np.zeros((B, T, nb, 2), dtype=np.int32),
+                rect=np.zeros((B, T, nb, 4), dtype=np.int32),
+                payload=np.zeros((B, T, Y, X), dtype=np.uint32),
+            ))
+        buf = self._spbuf
+        bts, mv, rect, payload = (buf["bts"], buf["mv"], buf["rect"],
+                                  buf["payload"])
+        changed = np.zeros((B, T), dtype=bool)
+        sig = np.zeros((B, T), dtype=bool)
+        is_key0 = np.zeros(B, dtype=bool)
+        frozen = set(self.quarantined)  # before this window
+        t_fail = {}  # stream → the step whose decode failed in this window
+        for b, frames in enumerate(chunk):
+            dec = decs[b]
+            for t, src in enumerate(frames):
+                isk = dec.is_key_frame(src)  # safe byte peek
+                got = self._guard(b, lambda: _oracle_decode_step(
+                    dec, src, isk, X, Y))
+                if got is None:  # quarantined: changed stays False
+                    if b not in frozen:
+                        t_fail.setdefault(b, t)
+                    continue
+                sig[b, t], cap = got
+                data = dec.previous_frame()
+                if data is not None:
+                    payload[b, t] = data.reshape(Y, X)
+                if t == 0:
+                    is_key0[b] = bool(isk)
+                bts[b, t] = cap["bts"]
+                mv[b, t] = cap["mv"]
+                rect[b, t] = cap["rect"]
+                changed[b, t] = cap["changed"]
+        # GOP-aligned init: a window-leading keyframe ships as the dense
+        # scan init (its tiles would be the whole frame anyway)
+        skip0 = bool(is_key0.all())
+        t0 = 1 if skip0 else 0
+
+        def all_copy(n, m):
+            return (np.zeros((n, nb), np.uint8), np.zeros((n, K, 2), np.int32),
+                    np.zeros((n, m, 16, 16), np.uint32),
+                    np.zeros((n, m, 2), np.int32))
+
+        def prep(b):
+            # frames decoded in this window: [t0, t_end); the rest all-copy
+            t_end = T if b not in self.quarantined else (
+                t_fail.get(b, t0) if b not in frozen else t0)
+            if t_end <= t0:
+                return all_copy(T - t0, 1)
+            got = sp_recon.prepare_kmv_sparse(
+                bts[b, t0:t_end], mv[b, t0:t_end], rect[b, t0:t_end],
+                (payload[b, t0:t_end] & np.uint32(0x00FFFFFF)), K=K)
+            if t_end == T:
+                return got
+            rest = all_copy(T - t_end, got[2].shape[1])
+            return tuple(np.concatenate([a, r]) for a, r in zip(got, rest))
+
+        preps = [prep(b) for b in range(B)]
+        m_max = max(1, max(p[2].shape[1] for p in preps))
+        m_pad = 1 << (m_max - 1).bit_length()
+
+        def padM(tiles, tyx):
+            # prepare_kmv_sparse guarantees M >= 1 with final-content pad
+            # tiles, so repeating column 0 is always a correct no-op rewrite
+            reps = m_pad - tiles.shape[1]
+            if reps == 0:
+                return tiles, tyx
+            return (np.concatenate([tiles, np.repeat(tiles[:, :1], reps, 1)],
+                                   1),
+                    np.concatenate([tyx, np.repeat(tyx[:, :1], reps, 1)], 1))
+
+        bc = np.stack([p[0] for p in preps])
+        mvk = np.stack([p[1] for p in preps])
+        padded = [padM(p[2], p[3]) for p in preps]
+        tiles = np.stack([q[0] for q in padded])
+        tyx = np.stack([q[1] for q in padded])
+        init = (self._put(payload[:, 0] & np.uint32(0x00FFFFFF)) if skip0
+                else self._carry_init(B))
+        frames = sp_recon.decode_batch_kmv_sparse(
+            init, self._put(bc), self._put(mvk), self._put(tiles),
+            self._put(tyx), self._put(changed[:, t0:]))
+        if skip0:
+            frames = torch.cat([init[:, None], frames], dim=1)
+        self._carry = frames[:, -1]
+        return self._emit(frames, self._put(sig), start)
+
+    def _decode_sp_window_sparse_native(self, chunk, start, decs) -> dict:
+        """kmv_sparse, native branch: the C++ decoder fills bcode/mvk/tiles
+        straight into a pooled window (decompress_kmv_sparse), the streams
+        decoding in threads.  Window-leading keyframes (all streams) ship
+        as the dense scan init; other keyframes arrive as full-tile frames.
+        Tiles cross as one flat [S, 256] array of each changed frame's real
+        tiles and one pad row (raw, or rANS-coded with
+        sparse_lane_payload), read on the device through tile_idx."""
+        vi = self.info
+        X, Y = vi.width, vi.height
+        B, T = len(chunk), self.cfg.window
+        nb = ((X + 15) // 16) * ((Y + 15) // 16)
+        K = self.cfg.kmv_k
+        if getattr(self, "_sparsebuf", None) is None:
+            self._sparsebuf = _pool_acquire(
+                ("sparse",) + self._buf_key, lambda: dict(
+                    bc=np.zeros((B, T, nb), dtype=np.uint8),
+                    mvk=np.zeros((B, T, K, 2), dtype=np.int32),
+                    tiles=np.zeros((B, T, nb, 16, 16), dtype=np.uint32),
+                    tyx=np.zeros((B, T, nb, 2), dtype=np.int32),
+                    init=np.zeros((B, Y, X), dtype=np.uint32),
+                ))
+        buf = self._sparsebuf
+        bc, mvk, tiles, tyx = buf["bc"], buf["mvk"], buf["tiles"], buf["tyx"]
+        changed = np.zeros((B, T), dtype=bool)
+        sig = np.zeros((B, T), dtype=bool)
+        skip0 = all(len(fr) > 0 and decs[b].is_key_frame(fr[0])
+                    for b, fr in enumerate(chunk))
+        t0 = 1 if skip0 else 0
+        m_used_arr = np.zeros((B, T), dtype=np.int32)
+
+        def host_decode_stream(b):
+            dec = decs[b]
+            for t, src in enumerate(chunk[b]):
+                if t == 0 and skip0:
+                    # guarded like every other step: a malformed keyframe
+                    # quarantines slot b instead of escaping the thread pool
+                    got = self._guard(
+                        b, lambda: dec.decompress(src, True, copy=False))
+                    if got is None:  # quarantined: init filled from carry
+                        continue
+                    view, _, _ = got
+                    if view is None:
+                        view = dec.latest_view()
+                    buf["init"][b] = np.asarray(view).reshape(Y, X)
+                    buf["init"][b] &= np.uint32(0x00FFFFFF)
+                    changed[b, 0] = True
+                    sig[b, 0] = True
+                    continue
+                chg, sg, m_used = self._guard(
+                    b, lambda: dec.decompress_kmv_sparse(
+                        src, dec.is_key_frame(src), bc[b, t], mvk[b, t],
+                        tiles[b, t], tyx[b, t], K=K),
+                    default=(False, False, 0))
+                changed[b, t] = chg
+                sig[b, t] = sg
+                if chg:
+                    m_used_arr[b, t] = max(1, m_used)
+
+        if B > 1:
+            # the native calls release the GIL; each thread owns disjoint
+            # buffer rows
+            from concurrent.futures import ThreadPoolExecutor
+            import os as _os
+
+            with ThreadPoolExecutor(min(B, _os.cpu_count() or 1)) as ex:
+                list(ex.map(host_decode_stream, range(B)))
+        else:
+            host_decode_stream(0)
+        if skip0 and self.quarantined:
+            # a stream whose window-leading KEYFRAME failed (or that was
+            # quarantined before this window) starts from its carry, not
+            # the pooled init row; one quarantined MID-window keeps its
+            # decoded keyframe (changed[b, 0]), which its earlier frames
+            # composed against
+            prev = (carry_to_numpy(self._carry) if self._carry is not None
+                    else np.zeros((B, Y, X), dtype=np.uint32))
+            for b in self.quarantined:
+                if b < B and not changed[b, 0]:
+                    buf["init"][b] = prev[b]
+        m_max = max(1, int(m_used_arr.max()))
+        m_pad = 1 << (m_max - 1).bit_length()
+        # sticky bucket, as the reference keeps it (its jit keys)
+        m_pad = min(max(m_pad, getattr(self, "_m_bucket", 1)), nb)
+        self._m_bucket = m_pad
+        init = (self._put(buf["init"]) if skip0 else self._carry_init(B))
+        # ragged tile transfer: only real tiles (+1 pad row per changed
+        # frame)
+        flat_rows = []
+        tile_idx = np.zeros((B, T - t0, m_pad), dtype=np.int32)
+        off = 0
+        for b in range(B):
+            for t in range(t0, T):
+                if not changed[b, t]:
+                    continue
+                take = min(int(m_used_arr[b, t]) + 1, nb)  # +1 = pad row
+                flat_rows.append(tiles[b, t, :take].reshape(take, 256))
+                j = np.minimum(np.arange(m_pad), take - 1)
+                tile_idx[b, t - t0] = off + j
+                off += take
+        flat = (np.concatenate(flat_rows, axis=0) if flat_rows
+                else np.zeros((1, 256), np.uint32))
+        if self.cfg.sparse_lane_payload and flat.shape[0] > 1:
+            # tile pixels cross the link rANS-coded and are lane-decoded on
+            # the device
+            from ..kernels import lane_transport as _lt
+
+            pack = _lt.encode_tiles(flat & np.uint32(0x00FFFFFF))
+            flat_dev = _lt.decode_tiles_device(pack, self.device)
+        else:
+            flat_dev = self._put(flat)
+        frames = sp_recon.decode_batch_kmv_sparse_ragged(
+            init, self._put(bc[:, t0:]), self._put(mvk[:, t0:]), flat_dev,
+            self._put(tile_idx), self._put(tyx[:, t0:, :m_pad]),
+            self._put(changed[:, t0:]))
+        if skip0:
+            frames = torch.cat([init[:, None], frames], dim=1)
+        self._carry = frames[:, -1]
+        return self._emit(frames, self._put(sig), start)
+
+    # -- MSVideo1 --------------------------------------------------------------
+
+    def _decode_msv1_window(self, chunk, start) -> dict:
+        """MSV1: each frame parsed into per-block commands on the host
+        (native, or the oracle's parse_commands), then one msv1_paint
+        launch paints the window of every stream."""
+        vi = self.info
+        X, Y = vi.width, vi.height
+        pal = (palette_to_u32(vi.palette) if vi.codec == CodecType.MSVC8
+               else None)
+        B, T = len(chunk), self.cfg.window
+        nb = (X >> 2) * (Y >> 2)
+        bt = np.zeros((B, T, nb), dtype=np.uint8)
+        sel = np.zeros((B, T, nb, 16), dtype=np.uint8)
+        col = np.zeros((B, T, nb, 8), dtype=np.uint32)
+        chg = np.zeros((B, T), dtype=bool)
+        from .. import native as _native
+
+        parse = (_native.native_msv1_parse if _native.available()
+                 else parse_commands)
+        for b, frames in enumerate(chunk):
+            for t, src in enumerate(frames):
+                # a malformed MSV1 stream quarantines its slot (frozen at
+                # the last good frame) instead of failing the batch
+                got = self._guard(b, lambda: parse(src, X, Y, pal=pal))
+                if got is None:
+                    continue
+                bt[b, t], sel[b, t], col[b, t], chg[b, t] = got
+        init = self._carry_init(B)
+        # as the reference: valid when the window is not the stream's first
+        valid = torch.full((B,), start > 0, dtype=torch.bool,
+                           device=self.device)
+        il = self.cfg.insignificant_lines
+        frames, signif = msv1_paint.decode_batch(
+            init, valid, self._put(bt),
+            self._put(msv1_paint.sel_to_plane(sel, Y, X)), self._put(col),
+            self._put(chg), (il + 3) >> 2, il, X // 4)
+        self._carry = frames[:, -1]
+        return self._emit(frames, signif, start)
 
     # -- lane containers -------------------------------------------------------
 

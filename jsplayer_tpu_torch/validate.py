@@ -13,6 +13,9 @@ encoder, decodes it on the host, and runs each leg through the port on
                        frame 1's commands against sp_recon.compose_frame
   kmv_native_parity    native kmv transport, then decode_sequence_kmv
                        (csrc/kmv_compose.cu)
+  kmv_sparse_parity    native sparse transport (decompress_kmv_sparse a
+                       frame, every frame's tiles at M = NB), then
+                       decode_batch_kmv_sparse (csrc/kmv_sparse.cu)
   bc_parity            native bc transport, then decode_sequence_bc
                        (csrc/bc_compose.cu)
   lane_raw_parity      transcode_to_lane (raw payload) of the stream, then
@@ -28,9 +31,8 @@ encoder, decodes it on the host, and runs each leg through the port on
 Every leg but mxu_parity holds each decoded frame against the source frame
 (the lane legs on the low 24 bits, as the script does).  It prints one
 JSON line {leg: bool} and exits 1 when a leg is False.  Nothing is caught:
-a leg that fails to run raises.  The script's kmv_sparse leg waits for
-its path (ROADMAP.md queue 1 item 11); its bench and its TPU_RESULTS.md
-append are not ported.
+a leg that fails to run raises.  The script's bench and its
+TPU_RESULTS.md append are not ported.
 """
 
 from __future__ import annotations
@@ -112,7 +114,7 @@ class Legs:
                      stack_sp_commands([self.streams], X, Y).items()}
         if not native.available():
             raise RuntimeError("the native host library did not build: the "
-                               "kmv_native and bc legs need it")
+                               "kmv_native, kmv_sparse and bc legs need it")
 
     def put(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.dev)
@@ -166,6 +168,30 @@ class Legs:
         return self.matches(sp_recon.decode_sequence_kmv(
             self.zero(), *(self.put(kmv[k][0]) for k in (
                 "paycode", "mvk", "changed"))))
+
+    def kmv_sparse_parity(self) -> bool:
+        """Per-frame native sparse emission into dense [T, NB] tile rows,
+        then the batched sparse scan of one stream (tpu_validate.py's leg:
+        the keyframe's tiles must fit M = NB)."""
+        d = native.NativeScreenPressor(X, Y, 24)
+        d.preinit(0)
+        nb = d.nbx * d.nby
+        T = len(self.streams)
+        bc = np.zeros((T, nb), np.uint8)
+        mvk = np.zeros((T, K, 2), np.int32)
+        tiles = np.zeros((T, nb, 16, 16), np.uint32)
+        tyx = np.zeros((T, nb, 2), np.int32)
+        chg = np.zeros(T, bool)
+        fits = True
+        for t, st in enumerate(self.streams):
+            chg[t], _, m_used = d.decompress_kmv_sparse(
+                st, d.is_key_frame(st), bc[t], mvk[t], tiles[t], tyx[t], K=K)
+            if t == 0:
+                fits = m_used <= nb
+        frames = sp_recon.decode_batch_kmv_sparse(
+            self.zero()[None], *(self.put(a[None]) for a in (
+                bc, mvk, tiles, tyx, chg)))
+        return fits and self.matches(frames[0])
 
     def bc_parity(self) -> bool:
         bc = native.native_sp_decode_streams_bc([self.streams], X, Y, K=K)
@@ -231,8 +257,8 @@ class Legs:
 
 
 LEGS = ("xla_parity", "pallas_patch_parity", "mxu_parity",
-        "kmv_native_parity", "bc_parity", "lane_raw_parity",
-        "lane_rans_parity", "lane_ragged_parity")
+        "kmv_native_parity", "kmv_sparse_parity", "bc_parity",
+        "lane_raw_parity", "lane_rans_parity", "lane_ragged_parity")
 
 
 def run(device="cuda") -> dict[str, bool]:

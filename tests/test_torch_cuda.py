@@ -18,6 +18,8 @@ from test_torch_bc_cases import BC_CASES, run_bc_case
 from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
     rows_view
 from test_torch_lane_cases import LANE_CASES, run_lane_case
+from test_torch_msv1_cases import MSV1_CASES, run_msv1_case
+from test_torch_sparse_cases import SPARSE_CASES, run_sparse_case
 from test_torch_rans_cases import RANS_CASES, offset_view, rans_case_inputs
 
 pytestmark = pytest.mark.cuda
@@ -684,3 +686,184 @@ def test_lane_ingest_cuda_matches_cpu(dev, payload, kw):
                 assert torch.equal(v, b[k].cpu()), k
             else:
                 np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
+
+
+# -- kmv_sparse (csrc/kmv_sparse.cu) and MSV1 paint (csrc/msv1_paint.cu) -----
+
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_kernel_cases(dev, case):
+    """csrc/kmv_sparse.cu against its plain twin, bit for bit, on the
+    shapes, layouts, starts, indices and vectors that pick each path of the
+    kernel (tests/test_torch_sparse_cases.py SPARSE_CASES): overlapping
+    clamped edge tiles (the owner list and its overflow walk), duplicated,
+    off-grid and wild starts, indices that wrap or fall outside the tile
+    rows, wrapping vectors and -2^31, codes 1 and past 2+K, M = 1 and
+    M = NB, Y and X not multiples of 16, offset, odd-stride and window
+    views, unaligned and wide tile rows, K = 0 and 8, unchanged streams
+    with garbage commands."""
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose_ref
+
+    prev, args, chg, got = run_sparse_case(case, dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kmv_sparse_compose_ref(prev, *args, chg),
+                               rtol=0, atol=0)
+
+
+def test_sparse_kernel_rejects_aliased_out_and_wrong_types(dev):
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose
+
+    prev = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
+    bcode = torch.zeros((2, 1), dtype=torch.uint8, device=dev)
+    mvk = torch.zeros((2, 2, 2), dtype=torch.int32, device=dev)
+    tiles = torch.zeros((3, 256), dtype=torch.int32, device=dev)
+    idx = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    yx = torch.zeros((2, 4, 2), dtype=torch.int32, device=dev)
+    chg = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="alias"):
+        kmv_sparse_compose(prev, bcode, mvk, tiles, idx, yx, chg, out=prev)
+    with pytest.raises(TypeError, match="uint8"):
+        kmv_sparse_compose(prev, bcode.int(), mvk, tiles, idx, yx, chg)
+    with pytest.raises(ValueError, match="tile_yx"):
+        kmv_sparse_compose(prev, bcode, mvk, tiles, idx, yx[:, :2], chg)
+    with pytest.raises(ValueError, match="tiles"):
+        kmv_sparse_compose(prev, bcode, mvk, tiles[:, :128], idx, yx, chg)
+    with pytest.raises(IndexError):
+        kmv_sparse_compose(prev, bcode, mvk, tiles[:0], idx, yx, chg)
+
+
+@pytest.mark.parametrize("B,T,Y,X,M", [(1, 3, 1080, 1920, 64),
+                                       (4, 2, 1080, 1920, 8160),
+                                       (3, 4, 40, 56, 12)])
+def test_sparse_scan_on_the_card(dev, B, T, Y, X, M):
+    """decode_batch_kmv_sparse (dense tiles, an identity index) and the
+    ragged scan over the same tiles, on the card, against the plain scan:
+    host-layout starts (clamped edges, M = NB at 1080p: every block a
+    tile, as a mid-window keyframe ships)."""
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    rng = np.random.default_rng(B * T + M)
+    nby, nbx = (Y + 15) // 16, (X + 15) // 16
+    nb = nby * nbx
+    blocks = np.sort(rng.random((B, T, nb)).argsort(-1)[..., :M], -1) \
+        if M < nb else np.broadcast_to(np.arange(nb), (B, T, nb))
+    by, bx = np.divmod(blocks, nbx)
+    yx = np.stack([np.minimum(by * 16, Y - 16), np.minimum(bx * 16, X - 16)],
+                  -1).astype(np.int32)
+    init = rand_u32((B, Y, X), 1)
+    bcode = torch.from_numpy(rng.integers(0, 5, (B, T, nb)).astype(np.uint8))
+    mvk = torch.from_numpy(rng.integers(-40, 40, (B, T, 2, 2))
+                           .astype(np.int32))
+    tiles = rand_u32((B, T, M, 16, 16), 2)
+    chg = torch.from_numpy(rng.random((B, T)) < 0.8)
+    args = (init, bcode, mvk, tiles, torch.from_numpy(yx), chg)
+    want = P.decode_batch_kmv_sparse(*args)
+    before = P.kmv_sparse_compose.launches
+    got = P.decode_batch_kmv_sparse(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    assert P.kmv_sparse_compose.launches == before + T
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", sorted(MSV1_CASES))
+def test_msv1_kernel_cases(dev, case):
+    """csrc/msv1_paint.cu against its plain twin, bit for bit, frames and
+    diff flags, on tests/test_torch_msv1_cases.py MSV1_CASES: offset views
+    (the scalar loads), window slices, rows past 128 columns and short of
+    them, insignificant lines, every block painted or none, sel >= 8."""
+    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint_ref
+
+    args, frames, diff = run_msv1_case(case, dev)
+    torch.cuda.synchronize()
+    want_f, want_d = msv1_paint_ref(*args[:4], args[6])
+    torch.testing.assert_close(frames, want_f, rtol=0, atol=0)
+    assert torch.equal(diff, want_d)
+
+
+def test_msv1_window_at_cif_on_the_card(dev):
+    """decode_batch at CIF, B=8 x 32 steps: frames and significance against
+    the plain decode."""
+    from jsplayer_tpu_torch.kernels import msv1_paint as M
+
+    B, T, Y, X = 8, 32, 288, 352
+    rng = np.random.default_rng(5)
+    nb = (Y // 4) * (X // 4)
+    init = rand_u32((B, Y, X), 3)
+    bt = torch.from_numpy(((rng.random((B, T, nb)) < 0.1)
+                           * rng.integers(1, 3, (B, T, nb))).astype(np.uint8))
+    sel = torch.from_numpy(rng.integers(0, 9, (B, T, Y, X)).astype(np.uint8))
+    col = rand_u32((B, T, nb, 8), 4)
+    chg = torch.from_numpy(rng.random((B, T)) < 0.9)
+    valid = torch.from_numpy(rng.random(B) < 0.5)
+    args = (init, valid, bt, sel, col, chg, 3, 9, X // 4)
+    want = M.decode_batch(*args)
+    got = M.decode_batch(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                           for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def ingest_on_both(avis, **kw):
+    """The pipeline on the CPU and on the card → (cpu windows, cuda
+    windows), keys and values checked equal."""
+    from jsplayer_tpu_torch.core.source import MemorySource
+    from jsplayer_tpu_torch.pipeline import ingest as P
+
+    outs = {}
+    for d in ("cpu", "cuda"):
+        pipe = P.VideoIngestPipeline([MemorySource(a) for a in avis],
+                                     P.IngestConfig(device=d, **kw))
+        outs[d] = list(pipe)
+    assert len(outs["cpu"]) == len(outs["cuda"]) > 1
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert a.keys() == b.keys()
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, b[k].cpu()), k
+            else:
+                np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
+    return outs
+
+
+@pytest.mark.parametrize("kw", [
+    dict(window=4), dict(window=5, model_downscale=2),
+    dict(window=4, sparse_lane_payload=True, model_downscale=2)])
+def test_sparse_ingest_cuda_matches_cpu(dev, kw):
+    """kmv_sparse on the card against the same pipeline on the CPU: mid-GOP
+    and keyframe-led windows, raw and rANS-coded tiles (the packed decode
+    launches)."""
+    from jsplayer_tpu_torch.kernels.rans_lanes import rans_decode_packed
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose
+
+    before = (kmv_sparse_compose.launches, rans_decode_packed.launches)
+    ingest_on_both([stills_avi(s, nframes=14) for s in (3, 7, 11)],
+                   sp_device_path="kmv_sparse", **kw)
+    assert kmv_sparse_compose.launches > before[0]
+    assert (rans_decode_packed.launches > before[1]) == \
+        kw.get("sparse_lane_payload", False)
+
+
+def test_msv1_ingest_cuda_matches_cpu(dev):
+    """MSV1 16-bit windows on the card against the CPU, one msv1_paint
+    launch a window."""
+    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+    from jsplayer_tpu_torch.encode.msv1_enc import encode_frame_16
+    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
+
+    avis = []
+    for s in range(3):
+        rng = np.random.default_rng(s)
+        f = np.full(32 * 48, 0x080808, dtype=np.uint32)
+        chunks, prev = [], None
+        for t in range(11):
+            f = f.copy()
+            x0 = int(rng.integers(0, 11)) * 4
+            f.reshape(32, 48)[8:12, x0:x0 + 4] = 0x080808 * int(
+                rng.integers(1, 31))
+            chunks.append(encode_frame_16(f, prev, 48, 32))
+            prev = f
+        avis.append(mux_avi(chunks, 48, 32, 16, codec="CRAM",
+                            keyflags=[t == 0 for t in range(11)]))
+    before = msv1_paint.launches
+    outs = ingest_on_both(avis, window=4, model_downscale=2)
+    assert msv1_paint.launches == before + len(outs["cuda"])

@@ -11,6 +11,7 @@ import ctypes
 import dataclasses
 import difflib
 import enum
+import inspect
 import os
 import re
 import threading
@@ -27,6 +28,7 @@ from jsplayer_tpu.core.source import MemorySource as JMem
 from jsplayer_tpu.encode.avi_mux import mux_avi as j_mux
 from jsplayer_tpu.encode.mp3_synth import make_frames
 from jsplayer_tpu.encode.sp_enc import ScreenPressorEncoder as JEnc
+from jsplayer_tpu.kernels import lane_transport as JLT
 from jsplayer_tpu.pipeline.gop import snap_window_starts as j_snap
 from jsplayer_tpu.pipeline.ingest import StreamReader as JReader
 from jsplayer_tpu.utils.corpora import screen_mix as j_mix
@@ -36,6 +38,7 @@ from jsplayer_tpu_torch.core.source import MemorySource as PMem
 from jsplayer_tpu_torch.encode.avi_mux import mux_avi as p_mux
 from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder as PEnc
 from jsplayer_tpu_torch.encode.sp_enc import pack_rgb
+from jsplayer_tpu_torch.kernels import lane_transport as PLT
 from jsplayer_tpu_torch.pipeline.gop import snap_window_starts as p_snap
 from jsplayer_tpu_torch.pipeline.ingest import StreamReader as PReader
 from jsplayer_tpu_torch.utils.corpora import screen_mix as p_mix
@@ -58,6 +61,7 @@ COPIES = [
     "pipeline/gop.py", "native/__init__.py", "native/spdec.cpp",
     "encode/__init__.py", "encode/sp_enc.py", "encode/avi_mux.py",
     "codecs/msvideo1.py", "codecs/lane_format.py", "transcode.py",
+    "encode/msv1_enc.py", "encode/mp3_synth.py",
 ]
 
 #: the repairs a copy may carry beyond its import lines: for each file,
@@ -656,3 +660,85 @@ def test_lane_restart_from_derived_commands(payload):
             torch.from_numpy(w.states.view(np.int32)),
             torch.from_numpy(w.freq), *cmds, U=w.n_units)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), frames)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_msv1_encoder_matches_reference(bits):
+    """The port's encode/msv1_enc.py: encode_frame_8/16 over a chain (a
+    keyframe, then skips and 1-, 2- and 8-colour blocks) and the opcode
+    fuzzers, byte for byte."""
+    from jsplayer_tpu.encode import msv1_enc as JE
+    from jsplayer_tpu.codecs.msvideo1 import from_rgb15
+    from jsplayer_tpu_torch.encode import msv1_enc as PE
+
+    X, Y = 48, 32
+    rng = np.random.default_rng(bits)
+    if bits == 16:
+        pal = np.array([from_rgb15(int(c)) for c in
+                        rng.integers(0, 0x8000, 9)], dtype=np.uint32)
+    qy, qx = np.mgrid[0:Y, 0:X] // 2
+
+    def encodable():  # at most two colours in each 2x2 quadrant
+        pair = rng.integers(0, 9, (Y // 2, X // 2, 2))
+        return pair[qy, qx, rng.integers(0, 2, (Y, X))]
+
+    frame = encodable()
+    prev, outs = None, ([], [])
+    for t in range(6):
+        frame, other = frame.copy(), encodable()
+        for _ in range(4):
+            by, bx = rng.integers(0, Y // 4) * 4, rng.integers(0, X // 4) * 4
+            frame[by:by + 4, bx:bx + 4] = other[by:by + 4, bx:bx + 4]
+        frame[:4, :4] = t  # a one-colour block
+        cur = (pal[frame] if bits == 16 else frame.astype(np.uint8))
+        for out, mod in zip(outs, (JE, PE)):
+            enc = mod.encode_frame_16 if bits == 16 else mod.encode_frame_8
+            out.append(enc(cur.reshape(-1), prev, X, Y))
+        prev = cur.reshape(-1)
+    assert outs[1] == outs[0] and len(set(outs[0])) > 1
+    fuzz = "random_stream_16" if bits == 16 else "random_stream_8"
+    for skip in (False, True):
+        got = getattr(PE, fuzz)(np.random.default_rng(3), X, Y, skip)
+        want = getattr(JE, fuzz)(np.random.default_rng(3), X, Y, skip)
+        assert got == want
+    assert PE.to_rgb15(0x123456) == JE.to_rgb15(0x123456)
+
+
+def test_mp3_synth_matches_reference():
+    """The port's encode/mp3_synth.py (the MSV1 runs' audio tracks): frames,
+    headers, garbage and silence, byte for byte, for several rates."""
+    from jsplayer_tpu.encode import mp3_synth as JS
+    from jsplayer_tpu_torch.encode import mp3_synth as PS
+
+    for kw in (dict(), dict(bitrate_idx=5, sampling_idx=1),
+               dict(bitrate_idx=14, sampling_idx=2)):
+        assert PS.make_frames(7, **kw) == JS.make_frames(7, **kw)
+        assert PS.make_silence_frames(3, **kw) == \
+            JS.make_silence_frames(3, **kw)
+        assert PS.make_header(**kw) == JS.make_header(**kw)
+    stream = JS.make_frames(5)[0]
+    assert PS.with_garbage(stream) == JS.with_garbage(stream)
+
+
+@pytest.mark.parametrize("name", ["LanePack", "_pick_lanes", "_bucket_steps",
+                                  "pack_to_bytes", "pack_from_bytes"])
+def test_lane_transport_host_helper_is_a_verbatim_copy(name):
+    assert inspect.getsource(getattr(PLT, name)) == \
+        inspect.getsource(getattr(JLT, name))
+    assert PLT._MAGIC == JLT._MAGIC
+
+
+def test_lane_transport_encode_tiles_differs_only_in_its_encoder():
+    """kernels/lane_transport.py's host part (whose outputs
+    tests/test_torch_lane_transport.py pins): encode_tiles is the
+    reference's but for the call of the lockstep encoder in place of
+    rans_lanes.encode_lanes."""
+    got = inspect.getsource(PLT.encode_tiles).splitlines()
+    want = inspect.getsource(JLT.encode_tiles).splitlines()
+    assert len(got) == len(want)
+    diff = [(g, w) for g, w in zip(got, want) if g != w]
+    assert diff == [(
+        "    lane_bytes, states, ns = encode_lanes_lockstep(syms, freq, "
+        "n_lanes)",
+        "    lane_bytes, states, ns = rans_lanes.encode_lanes(syms, freq, "
+        "n_lanes)")]

@@ -286,17 +286,16 @@ def test_ingest_cli(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["path", "mesh", "msv1", "lane"])
 def test_unported_paths_raise(what):
+    """A mesh is not ported on any path: the kmv default, kmv_sparse
+    ("path"), MSV1 sources and lane containers run, but not over a mesh."""
     srcs = [MemorySource(SP3[0])]
-    kw = dict(device="cpu")
+    kw = dict(device="cpu", mesh=object())
     if what == "path":
         kw["sp_device_path"] = "kmv_sparse"
-    elif what == "mesh":
-        kw["mesh"] = object()
     elif what == "msv1":
         srcs = [MemorySource(msv1_avi(1)[0])]
-    else:  # lane containers are ported, not over a mesh
+    elif what == "lane":
         srcs = [MemorySource(b"JLV1" + bytes(60))]
-        kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.VideoIngestPipeline(srcs, P.IngestConfig(**kw))
 
@@ -380,12 +379,11 @@ def test_block_command_paths_quarantine(path, native, monkeypatch):
 
 @pytest.mark.parametrize("path", ["bc", "kmv_sparse", "lane"])
 def test_unported_sp_paths_raise(path):
-    """kmv_sparse is not ported; bc and lane are, but not over a mesh."""
-    kw = dict(mesh=object()) if path in ("bc", "lane") else {}
+    """bc, kmv_sparse and lane are ported, but not over a mesh."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.VideoIngestPipeline([MemorySource(SP3[0])],
-                              P.IngestConfig(device="cpu",
-                                             sp_device_path=path, **kw))
+                              P.IngestConfig(device="cpu", mesh=object(),
+                                             sp_device_path=path))
 
 
 # -- the "bc" path (block-command transport) ----------------------------------

@@ -103,7 +103,7 @@ def test_bc_path_and_validate_run_without_importing_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok 16 8"
+    assert proc.stdout.strip() == "ok 16 9"
 
 
 TINY_LANE = TINY_INGEST.split("pipe = ")[0] + r"""
@@ -141,6 +141,47 @@ def test_lane_path_runs_without_importing_jax():
                           timeout=240)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok 36 3"
+
+
+TINY_SPARSE_MSV1 = TINY_INGEST.split("pipe = ")[0] + r"""
+n = 0
+for lane in (False, True):
+    pipe = jt.VideoIngestPipeline(
+        [jt.MemorySource(avi), jt.MemorySource(avi)],
+        jt.IngestConfig(window=4, sp_device_path="kmv_sparse",
+                        sparse_lane_payload=lane, model_downscale=2,
+                        device="cpu"))
+    n += sum(w["frames_u32"].shape[1] for w in pipe)
+from jsplayer_tpu_torch.encode.msv1_enc import encode_frame_16
+g = np.full(32 * 32, 0x102030, dtype=np.uint32)
+chunks, prev = [], None
+for t in range(5):
+    g = g.copy()
+    g[t * 64:(t + 1) * 64] = 0x080808 * (t + 1)
+    chunks.append(encode_frame_16(g, prev, 32, 32))
+    prev = g
+msv1 = mux_avi(chunks, 32, 32, 16, codec="CRAM",
+               keyflags=[t == 0 for t in range(5)])
+pipe = jt.VideoIngestPipeline([jt.MemorySource(msv1)],
+                              jt.IngestConfig(window=4, device="cpu"))
+n += sum(w["frames_u32"].shape[1] for w in pipe)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
+print("ok", n)
+"""
+
+
+def test_sparse_and_msv1_paths_run_without_importing_jax():
+    """The kmv_sparse ingest (raw and rANS-coded tiles: kernels/
+    lane_transport), the port's msv1_enc and the MSV1 ingest
+    (kernels/msv1_paint) import no jax and nothing of jsplayer_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_SPARSE_MSV1], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 24"
 
 
 def port_sources():
@@ -306,7 +347,8 @@ def test_experiments_run_without_importing_jax():
     assert proc.stdout.split() == [
         "ok", "bc_step", "block_step", "common", "exp_model_fusion2",
         "exp_pallas_bisect", "exp_pallas_ds", "exp_pallas_ds2", "kmv_step",
-        "lane_runs", "lane_step", "probe_step", "probes", "streams"]
+        "lane_runs", "lane_step", "msv1_step", "probe_step", "probes",
+        "sparse_step", "streams"]
 
 
 def test_experiment_kernels_never_take_the_plain_path(no_cuda):
@@ -349,3 +391,26 @@ def test_lane_kernels_never_take_the_plain_path(no_cuda):
         rans_decode_packed(torch.empty((1, 8, 4), **u8), states, freq, 3)
     assert lane_compose.launches == rans_decode_aligned.launches == \
         rans_decode_packed.launches == 0
+
+
+def test_sparse_and_msv1_kernels_never_take_the_plain_path(no_cuda):
+    """kmv_sparse_compose and msv1_paint: a tensor off the CPU goes to the
+    kernel branch, which raises here (no card)."""
+    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose
+
+    i32 = dict(dtype=torch.int32, device="meta")
+    u8 = dict(dtype=torch.uint8, device="meta")
+    plane = torch.empty((1, 16, 16), **i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmv_sparse_compose(plane, torch.empty((1, 1), **u8),
+                           torch.empty((1, 2, 2), **i32),
+                           torch.empty((3, 256), **i32),
+                           torch.empty((1, 2), **i32),
+                           torch.empty((1, 2, 2), **i32),
+                           torch.ones(1, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        msv1_paint(plane, torch.empty((1, 2, 16), **u8),
+                   torch.empty((1, 2, 16, 16), **u8),
+                   torch.empty((1, 2, 16, 8), **i32), 0)
+    assert kmv_sparse_compose.launches == msv1_paint.launches == 0
