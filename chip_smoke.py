@@ -54,7 +54,8 @@ the most tiles of the port's native sparse emission of the streams; runs
       host and decoded by rans_decode_packed, its ingest route.
 
 MSVideo1: msv1_paint (csrc/msv1_paint.cu, one launch a window) against its
-twin on a random B=8 CIF window of 64 steps; runs
+twin on a random B=8 CIF window of 64 steps, through its staged instance
+(commands in shared memory ahead of the time loop), as in both runs
 
   (m) MSV1 16-bit CIF (352x288), B=8 x 128 frames;
   (n) MSV1 8-bit palettized 320x240 with MP3 tracks, B=8 x 128 frames,
@@ -92,7 +93,8 @@ move on this run's data over 3.35 TB/s; the B=1 scans add a DRAM-only
 bound without the reads of prev, the step before's out, warm in L2; the
 rANS decodes add Msym/s.
 ds_probe's block_transpose mode also gives torch's own transpose copy
-(`library_ms`) on a [4, 1024, 1920] input, beside the kernel's time there.
+(`library_ms`) on a [4, 1024, 1920] input, and its passthru mode torch's
+strided-slice copy on [64, 1024, 1920], beside the kernel's time there.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
 anything; without the repository around it the first import fails.  The
@@ -379,9 +381,10 @@ def kernel_counters() -> dict:
 def count_launches(fn):
     """Run fn() with every kernel's launch count set to 0 just before it →
     (fn's result, {kernel: launches during fn}); ds_probe's launches per
-    mode under "ds_probe_modes", rans_decode_aligned's per instance under
-    "rans_aligned_instances"."""
+    mode under "ds_probe_modes", rans_decode_aligned's and msv1_paint's per
+    instance under "rans_aligned_instances" and "msv1_instances"."""
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
     from jsplayer_tpu_torch.kernels.rans_lanes import rans_decode_aligned
 
     counters = kernel_counters()
@@ -389,10 +392,12 @@ def count_launches(fn):
         w.launches = 0
     ds_probe.by_mode.clear()
     rans_decode_aligned.by_instance.clear()
+    msv1_paint.by_instance.clear()
     res = fn()
     got = {name: w.launches for name, w in counters.items()}
     got["ds_probe_modes"] = dict(ds_probe.by_mode)
     got["rans_aligned_instances"] = dict(rans_decode_aligned.by_instance)
+    got["msv1_instances"] = dict(msv1_paint.by_instance)
     return res, got
 
 
@@ -1232,6 +1237,7 @@ def phase_msv1_kernel(card: str) -> dict:
     (experiments/msv1_step.window_inputs: a tenth of the blocks painted,
     sel 0-8), frames and diff flags bit for bit."""
     from jsplayer_tpu_torch.experiments.msv1_step import (msv1_bytes,
+                                                          msv1_sector_bytes,
                                                           window_inputs)
     from jsplayer_tpu_torch.kernels.msv1_paint import (msv1_paint,
                                                        msv1_paint_ref)
@@ -1243,13 +1249,17 @@ def phase_msv1_kernel(card: str) -> dict:
     err = max_abs_err(frames, want_f)
     require(torch.equal(frames, want_f) and torch.equal(diff, want_d),
             "msv1_paint bit-exact vs plain (frames and diff)")
+    require(msv1_paint.last_instance == "staged",
+            "msv1_paint ran its staged instance on the CIF window")
     out = torch.empty_like(frames)
 
     def call():
         msv1_paint(init, bt, sel, col, 0, out=out)
 
     Bm, Tm = bt.shape[:2]
-    res = dict(max_abs_err=err, steps=Tm, **step_report(
+    res = dict(max_abs_err=err, steps=Tm, instance=msv1_paint.last_instance,
+               sector_bytes=msv1_sector_bytes(init, bt, frames),
+               **step_report(
         "msv1_paint", f"{list(frames.shape)} random window (one launch), "
         f"bit-exact", card, time_ms(call), graph_ms(call),
         time_ms(lambda: msv1_paint_ref(init, bt, sel, col, 0), iters=2,
@@ -1340,6 +1350,9 @@ def phase_msv1_runs(card: str) -> dict:
         require_only(launches, ("msv1_paint", "ds2_pack"), f"run ({name})")
         require(launches["msv1_paint"] == len(batches),
                 f"run ({name}) one msv1_paint launch a window")
+        require(launches["msv1_instances"] == {"staged": len(batches)},
+                f"run ({name}) msv1_paint ran its staged instance "
+                f"({launches['msv1_instances']})")
         check_dense(batches, srcs, models, f"run ({name})")
         prev = torch.zeros((Bm, Y_, X_), dtype=torch.int32, device=DEV)
         for w in batches:
@@ -1537,6 +1550,7 @@ def phase_experiment_kernels(card: str) -> dict:
                                time_ms(lambda: probe_ref(f, mode)), nbytes))
         del got, want, out
     modes["block_transpose"].update(phase_transpose_yardstick(card))
+    modes["passthru"].update(phase_passthru_yardstick(card))
     pack_ms = time_ms(lambda: ds2_pack(frames[64]))
     log(f"ds2_pack [64,{Y},{X}] beside ds2_fields: {pack_ms:.4f} ms/call "
         f"({card})")
@@ -1583,6 +1597,44 @@ def phase_transpose_yardstick(card: str) -> dict:
         f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph) ({card})")
     return dict(library_ms=lib_ms, library_graph_ms=lib_graph,
                 library_shape=[4, 1024, X], y1024=res)
+
+
+def phase_passthru_yardstick(card: str) -> dict:
+    """passthru beside one PyTorch copy of the same function (a strided
+    slice made contiguous) on [64, 1024, 1920] (Y a multiple of BH), both
+    bit-exact against the twin → {"library_ms", "library_graph_ms",
+    "library_shape", "y1024": the kernel's numbers there}."""
+    from jsplayer_tpu_torch.experiments.probe_step import torch_passthru
+    from jsplayer_tpu_torch.experiments.probes import (probe_read_words,
+                                                       probe_ref)
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+
+    shape = (PROBE_DEPTH["passthru"], 1024, X)
+    f = rand_dev(shape, 1025)
+    want = probe_ref(f, "passthru")
+    got = ds_probe(f, "passthru")
+    lib = torch_passthru(f)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and torch.equal(lib, want),
+            f"passthru and torch's slice copy bit-exact on {list(shape)}")
+    out = torch.empty_like(want)
+
+    def call():
+        ds_probe(f, "passthru", out=out)
+
+    lib_ms = time_ms(lambda: torch_passthru(f))
+    lib_graph = graph_ms(lambda: torch_passthru(f))
+    res = step_report("ds_probe passthru", f"{list(shape)}, bit-exact",
+                      card, time_ms(call), graph_ms(call),
+                      time_ms(lambda: probe_ref(f, "passthru")),
+                      4 * probe_read_words("passthru", *shape)
+                      + io_bytes(want))
+    log(f"torch slice copy {list(shape)}: {lib_ms:.4f} ms/call, "
+        f"{lib_graph:.4f} as a CUDA graph, "
+        f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph) ({card})")
+    del f, want, got, lib, out
+    return dict(library_ms=lib_ms, library_graph_ms=lib_graph,
+                library_shape=list(shape), y1024=res)
 
 
 def load_bench_mix():

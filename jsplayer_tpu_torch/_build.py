@@ -126,6 +126,8 @@ def load() -> ctypes.CDLL:
                                                + [p, i64] * 2
                                                + [p, i32, i32, i32, i32, i32,
                                                   p])
+        lib.jsp_msv1_paint_instance.restype = i32
+        lib.jsp_msv1_paint_instance.argtypes = [p, i64] + [p, i64, i64] * 3
         lib.jsp_msv1_paint.restype = i32
         lib.jsp_msv1_paint.argtypes = ([p, i64] + [p, i64, i64] * 4
                                        + [p, i32, i32, i32, i32, i32, p])

@@ -35,23 +35,32 @@
 // clamped edge tiles, off-grid starts) is settled per 16x16 block cell of
 // the frame, not per pixel:
 //
-//   * a fill (cudaMemsetAsync) sets each cell's header (`top`, `full`, the
-//     count of its partial tiles less one) to -1;
+//   * each cell's header (`top`, `full`, the count of its partial tiles
+//     less one) is -1 when a call starts: the wrapper keeps the scratch
+//     per device and fills it once, and every compose puts back the headers
+//     it read (below), so no fill runs a call;
 //   * the owner pass, one thread a (stream, tile), places the tile's start
 //     and, for each of the (at most 2x2) cells its window touches, takes
 //     atomicMax(top, m); atomicMax(full, m) where the window covers the
 //     cell's whole in-frame part, else it appends m to the cell's list of
 //     kList partial tiles (atomicAdd on the count; past kList the list
 //     overflows);
-//   * the compose pass is bc_compose.cu's layout (a 3-D grid: stream, band
-//     of 16 rows, 128 columns; 2 rows x 4 consecutive pixels a thread, all
-//     in one cell; 16-byte loads and stores where X % 4 == 0 and the rows
-//     are 16-byte aligned).  A thread loads changed, its block's code, its
-//     cell's header (one 16-byte load) and, speculatively, its two rows of
-//     prev in place together: a pixel that keeps prev (most of a screen
-//     frame) is then one round trip.  top == full: the cell's every pixel
-//     belongs to tile `full` (or to no tile, -1) and a row of 4 pixels is
-//     one 16-byte load of the tile row where the start keeps the alignment.
+//   * the compose pass: a 3-D grid (stream, band of 16 rows, 128 columns),
+//     a warp a 16x16 cell, 2 rows x 4 consecutive pixels a lane; 16-byte
+//     loads and stores where X % 4 == 0 and the rows are 16-byte aligned.
+//     It is launched as the owner pass's programmatic dependent: a lane
+//     loads changed, its block's code and, speculatively, its two rows of
+//     prev in place while the owner pass runs (a pixel that keeps prev,
+//     most of a screen frame, then waits on nothing more), and only then
+//     waits for the owner pass (griddepcontrol.wait).  Lane 0 takes the
+//     cell's header by atomicExch, leaving -1 for the next call, and
+//     shuffles it to the warp: it is the header's only reader, so no
+//     barrier is needed.  On an H100, a B=4 1080p step: a block barrier
+//     before the reset measured ~8 us slower, a plain load and store of
+//     the header by lane 0 ~25 us slower (PERF.md).
+//     top == full: the cell's every pixel belongs to tile `full` (or to no
+//     tile, -1) and a row of 4 pixels is one 16-byte load of the tile row
+//     where the start keeps the alignment.
 //     top > full (an off-grid or clamped tile covers part of the cell after
 //     the last tile that covers all of it: on the host's layouts, the
 //     bottom row's clamped tiles where Y % 16 != 0): each pixel takes the
@@ -66,7 +75,8 @@
 
 namespace {
 
-constexpr int kTx = 32, kTy = 8;  // threads a block of the compose pass
+constexpr int kTx = 32, kTy = 8;  // the compose's block: kTy warps, cells
+constexpr int kMinBlocks = 5;     // compose blocks an SM holds
 constexpr int kPx = 4;            // consecutive pixels of a row a thread covers
 constexpr int kRows = 2;          // rows a thread covers
 constexpr int kOwnerThreads = 256;
@@ -95,11 +105,14 @@ __device__ __forceinline__ void put4(int32_t* v, int4 a) {
 }
 
 // cells: [B][NB][kCell] ints (top, full, count - 1, unused, list[kList]),
-// filled with -1 before this pass.
+// headers -1 when the pass starts.
 __global__ void __launch_bounds__(kOwnerThreads) sparse_owner_kernel(
     const int32_t* __restrict__ tile_yx, long long ty_bs,
     const uint8_t* __restrict__ changed, long long chg_bs,
     int* __restrict__ cells, int Y, int X, int nbx, int NB, int M) {
+  // the compose may start now: it reads the cells only after its
+  // griddepcontrol.wait, which waits for this whole grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int b = blockIdx.y;
   const int m = blockIdx.x * kOwnerThreads + threadIdx.x;
   if (m >= M || changed[b * chg_bs] == 0) return;
@@ -139,7 +152,9 @@ __device__ __forceinline__ TileRef tile_ref(
 }
 
 template <bool kVec>
-__global__ void __launch_bounds__(kTx * kTy) kmv_sparse_kernel(
+// kMinBlocks: at most 48 registers, 5 blocks (40 warps) an SM; 53 without
+// it, 4 blocks, measured ~0.9 us slower a B=4 1080p step on an H100
+__global__ void __launch_bounds__(kTx * kTy, kMinBlocks) kmv_sparse_kernel(
     const int32_t* __restrict__ prev, long long prev_bs,
     const int32_t* __restrict__ mvk, long long mvk_bs,
     const uint8_t* __restrict__ changed, long long chg_bs,
@@ -148,11 +163,15 @@ __global__ void __launch_bounds__(kTx * kTy) kmv_sparse_kernel(
     const int32_t* __restrict__ tiles, long long S, long long t_rs,
     bool tiles_vec, const int32_t* __restrict__ tile_idx, long long ti_bs,
     const int32_t* __restrict__ tile_yx, long long ty_bs,
-    const int* __restrict__ cells, int Y, int X, int nbx, int NB, int K) {
-  const int b = blockIdx.z;
-  const int x0 = (blockIdx.x * kTx + threadIdx.x) * kPx;
-  const int y0 = (blockIdx.y * kTy + threadIdx.y) * kRows;
-  if (x0 >= X || y0 >= Y) return;
+    int* cells, int Y, int X, int nbx, int NB, int K) {
+  // warp threadIdx.y is cell (blockIdx.x * kTy + threadIdx.y, blockIdx.y);
+  // lane: 4 pixels of 2 rows, columns (lane & 3) * 4, rows (lane >> 2) * 2
+  const int b = blockIdx.z, lane = threadIdx.x;
+  const int x0 = (blockIdx.x * kTy + threadIdx.y) * 16 + (lane & 3) * kPx;
+  const int y0 = blockIdx.y * 16 + (lane >> 2) * kRows;
+  // lanes past the frame stay for the warp's shuffles; lane 0 holds the
+  // cell's top-left pixel, so it is active where any lane is
+  const bool active = x0 < X && y0 < Y;
   const int32_t* pv = prev + b * prev_bs;
   int32_t* ob = out + b * out_bs;
   const int32_t* ti = tile_idx + b * ti_bs;
@@ -160,24 +179,41 @@ __global__ void __launch_bounds__(kTx * kTy) kmv_sparse_kernel(
   const int nr = min(kRows, Y - y0);
   const unsigned valid = kVec ? 0xFu : 0xFu >> (kPx - min(kPx, X - x0));
 
-  // changed, the block's code, the cell's header and prev in place are
-  // loaded together; the vector's slot waits for the code
-  const bool chg = changed[b * chg_bs] != 0;
+  // changed, the block's code and prev in place are loaded before the
+  // wait for the owner pass; the vector's slot waits for the code
   const long long bi = (long long)(y0 >> 4) * nbx + (x0 >> 4);
-  const int code = __ldg(bcode + b * bc_bs + bi);
-  int4 head = make_int4(-1, -1, -1, -1);
-  const int* cell = nullptr;
-  if (cells != nullptr) {
-    cell = cells + ((long long)b * NB + bi) * kCell;
-    head = __ldg((const int4*)cell);
-  }
+  bool chg = false;
+  int code = 0;
   int32_t v[kRows][kPx] = {};
-  if (kVec) {
+  if (active) {
+    chg = changed[b * chg_bs] != 0;
+    code = __ldg(bcode + b * bc_bs + bi);
+    if (kVec) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < nr) put4(v[r], __ldg((const int4*)(pv + (long long)(y0 + r) *
-                                                           X + x0)));
+      for (int r = 0; r < kRows; ++r)
+        if (r < nr) put4(v[r], __ldg((const int4*)(pv + (long long)(y0 + r) *
+                                                             X + x0)));
+    }
   }
+  int4 head = make_int4(-1, -1, -1, -1);
+  int* cell = nullptr;
+  if (cells != nullptr) {  // uniform: every lane reaches the shuffles
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    cell = cells + ((long long)b * NB + bi) * kCell;
+    // lane 0 takes the cell's header and leaves -1 for the next call; no
+    // other thread reads it, so no barrier is needed
+    if (lane == 0 && active) {
+      const unsigned long long tf =
+          atomicExch((unsigned long long*)cell, ~0ull);
+      head.x = (int)(uint32_t)tf;
+      head.y = (int)(uint32_t)(tf >> 32);
+      head.z = atomicExch(cell + 2, -1);
+    }
+    head.x = __shfl_sync(0xFFFFFFFFu, head.x, 0);
+    head.y = __shfl_sync(0xFFFFFFFFu, head.y, 0);
+    head.z = __shfl_sync(0xFFFFFFFFu, head.z, 0);
+  }
+  if (!active) return;
   int top = chg ? head.x : -1, full = chg ? head.y : -1;
   bool moved = false;
   int dx = 0, dy = 0;
@@ -198,7 +234,7 @@ __global__ void __launch_bounds__(kTx * kTy) kmv_sparse_kernel(
   if (top > full && n_list <= kList) {
     // the listed partial tiles past `full`: each pixel takes the largest
     // whose window covers it
-    const int4 list = __ldg((const int4*)(cell + 4));
+    const int4 list = *(const int4*)(cell + 4);
     const int ms[kList] = {list.x, list.y, list.z, list.w};
 #pragma unroll
     for (int e = 0; e < kList; ++e) {
@@ -336,9 +372,11 @@ bool aligned(const void* p, unsigned bytes) {
 // X >= 16; mvk: [B, K, 2] int32; changed: [B] u8; bcode: [B, NB] u8 with
 // NB = ceil(Y/16) * ceil(X/16); tiles: [S, 256] int32, row stride t_rs;
 // tile_idx: [B, M] int32; tile_yx: [B, M, 2] int32 (contiguous [M, 2]);
-// cells: 16-byte aligned scratch of 8 * B * NB ints.  Enqueues a fill of
-// the cells' headers, the owner pass and the compose on `stream` → the
-// first CUDA error code, or 0.
+// cells: 16-byte aligned scratch of 8 * B * NB ints whose headers (the first
+// 4 ints of each 8) are -1, and are -1 again when the call's work is done.
+// Enqueues the owner pass and the compose (its programmatic dependent) on
+// `stream`, the compose alone where M == 0 → the first CUDA error code, or
+// 0.
 extern "C" int jsp_kmv_sparse_compose(
     const void* prev, long long prev_bs, const void* mvk, long long mvk_bs,
     const void* changed, long long chg_bs, void* out, long long out_bs,
@@ -351,29 +389,36 @@ extern "C" int jsp_kmv_sparse_compose(
   const cudaStream_t s = (cudaStream_t)stream;
   const int nbx = (X + 15) / 16, nby = (Y + 15) / 16, NB = nbx * nby;
   if (M > 0) {
-    cudaError_t e = cudaMemsetAsync(cells, 0xFF,
-                                    sizeof(int) * kCell * B * NB, s);
-    if (e != cudaSuccess) return (int)e;
     sparse_owner_kernel<<<dim3((M + kOwnerThreads - 1) / kOwnerThreads, B),
                           kOwnerThreads, 0, s>>>(
         (const int32_t*)tile_yx, ty_bs, (const uint8_t*)changed, chg_bs,
         (int*)cells, Y, X, nbx, NB, M);
-    e = cudaGetLastError();
+    const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   const bool vec = X % kPx == 0 && aligned(prev, 16) && aligned(out, 16) &&
                    prev_bs % kPx == 0 && out_bs % kPx == 0;
   const bool tiles_vec = aligned(tiles, 16) && t_rs % 4 == 0;
-  const dim3 block(kTx, kTy);
-  const unsigned gx = ((X + kPx - 1) / kPx + kTx - 1) / kTx;
-  const unsigned gy = ((Y + kRows - 1) / kRows + kTy - 1) / kTy;
-  auto kernel = vec ? kmv_sparse_kernel<true> : kmv_sparse_kernel<false>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nbx + kTy - 1) / kTy, nby, B);
+  cfg.blockDim = dim3(kTx, kTy);
+  cfg.stream = s;
+  cudaLaunchAttribute pdl = {};
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  // only the owner pass may run beside the compose's start; without tiles
+  // the compose follows the stream's previous work in full
+  cfg.attrs = &pdl;
+  cfg.numAttrs = M > 0 ? 1 : 0;
   // B > 65535 streams exceeds gridDim.z: the launch fails and is reported
-  kernel<<<dim3(gx, gy, B), block, 0, s>>>(
+  auto kernel = vec ? kmv_sparse_kernel<true> : kmv_sparse_kernel<false>;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel,
       (const int32_t*)prev, prev_bs, (const int32_t*)mvk, mvk_bs,
       (const uint8_t*)changed, chg_bs, (int32_t*)out, out_bs,
       (const uint8_t*)bcode, bc_bs, (const int32_t*)tiles, S, t_rs,
       tiles_vec, (const int32_t*)tile_idx, ti_bs, (const int32_t*)tile_yx,
-      ty_bs, M > 0 ? (const int*)cells : nullptr, Y, X, nbx, NB, K);
+      ty_bs, M > 0 ? (int*)cells : nullptr, Y, X, nbx, NB, K);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@
     ``POOL`` distinct streams (stream b is pool stream b % POOL), each a
     period of ``PERIOD`` frames led by a keyframe, repeated;
   * ``window_inputs(device)``: a random B=8 CIF window of commands;
-  * ``msv1_bytes``: the bytes a window must move on its data.
+  * ``msv1_bytes``: the bytes a window must move on its data, and
+    ``msv1_sector_bytes``: the bytes a kernel that reads only what it needs
+    moves at DRAM's 32-byte sector grain.
 """
 
 from __future__ import annotations
@@ -132,9 +134,28 @@ def msv1_bytes(init, btype, frames) -> int:
             + 4 * btype.shape[0] * btype.shape[1])
 
 
+def msv1_sector_bytes(init, btype, frames) -> int:
+    """Bytes a window moves where every read is a whole 32-byte sector (the
+    DRAM grain): msv1_bytes with the sel rows of painted blocks counted as
+    the sectors they lie in (8 blocks' rows a sector) and btype as whole
+    sectors of each step's row; init, frames and colours are whole sectors
+    already."""
+    B, T, nb = btype.shape
+    Y, X = init.shape[-2:]
+    nbx = X // 4
+    painted = (btype > 0).reshape(B, T, Y // 4, nbx)
+    groups = torch.nn.functional.pad(painted.to(torch.int8), (0, -nbx % 8))
+    sectors = int(groups.reshape(B, T, Y // 4, -1, 8).any(-1).sum())
+    bt_sectors = B * T * -(-nb // 32)
+    return (io_bytes(init, frames) + 32 * bt_sectors + 4 * 32 * sectors
+            + 32 * int(painted.sum()) + 4 * B * T)
+
+
 def main() -> int:
     """Time msv1_paint on the random B=8 CIF window (CUDA events through the
-    wrapper, and as a CUDA graph), held against its twin → one JSON line."""
+    wrapper, and as a CUDA graph), held against its twin → one JSON line:
+    the times, the instance that ran, the bytes the window must move
+    (msv1_bytes: the bound) and at the sector grain."""
     import json
 
     from ..kernels.msv1_paint import msv1_paint, msv1_paint_ref
@@ -151,7 +172,9 @@ def main() -> int:
 
     nbytes = msv1_bytes(init, bt, frames)
     res = dict(card=name, shape=list(frames.shape), exact=exact,
+               instance=getattr(msv1_paint, "last_instance", None),
                ms=time_ms(call), graph_ms=graph_ms(call), bytes=nbytes,
+               sector_bytes=msv1_sector_bytes(init, bt, frames),
                bound_ms=nbytes / HBM_BYTES_PER_MS)
     res["share"] = res["bound_ms"] / res["graph_ms"]
     print(json.dumps(res), flush=True)

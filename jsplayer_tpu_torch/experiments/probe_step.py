@@ -37,6 +37,15 @@ def torch_block_transpose(frames: torch.Tensor, BH: int = BH) -> torch.Tensor:
         .reshape(Cn, n * Xn, BH)
 
 
+def torch_passthru(frames: torch.Tensor, BH: int = BH) -> torch.Tensor:
+    """passthru (each block's top-left [BH/2, X/2]) in one PyTorch call,
+    for Y a multiple of BH: a strided slice made contiguous."""
+    Cn, Yn, Xn = frames.shape
+    n = Yn // BH
+    return frames.reshape(Cn, n, BH, Xn)[:, :, : BH // 2, : Xn // 2] \
+        .contiguous().reshape(Cn, n * (BH // 2), Xn // 2)
+
+
 def time_call(fn, want, nbytes) -> dict:
     """{"ms", "graph_ms", "bytes", "bound_ms", "exact"} of fn(), which
     must return `want`."""

@@ -9,7 +9,10 @@
     the port's native sparse emission of the streams (each stream decoded
     frame by frame, as the ingest's native branch does), ragged as the
     ingest ships it, with prev the source frames before it;
-  * ``sparse_bytes``: the bytes a step must move on its data.
+  * ``sparse_bytes``: the bytes a step must move on its data;
+  * ``node_split``: the device time of each node a call enqueues (a fill of
+    the cell scratch where there is one, the owner pass, the compose),
+    traced.
 """
 
 from __future__ import annotations
@@ -142,10 +145,41 @@ def sparse_bytes(prev, args, chg) -> int:
     return 8 * prev.numel() + cmds + io_bytes(chg)
 
 
+def node_split(step, calls: int = 50) -> dict:
+    """us a call of each node that step() enqueues, by torch.profiler over
+    `calls` calls after a warm-up one → {"fill", "owner", "compose",
+    "other"} (0.0 for a node the call does not have).  A node's time runs
+    from its start to its end on the card: a compose that starts early, as
+    the owner pass's programmatic dependent, counts its wait too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    split = dict(fill=0.0, owner=0.0, compose=0.0, other=0.0)
+    for ev in prof.key_averages():
+        name = ev.key
+        if name.startswith("cuda"):  # runtime calls, not device work
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        low = name.lower()
+        kind = ("owner" if "sparse_owner" in low else
+                "compose" if "kmv_sparse_kernel" in low else
+                "fill" if "memset" in low else "other")
+        split[kind] += us / calls
+    return split
+
+
 def main() -> int:
     """Time kmv_sparse_compose on the random step and on the captured step
     of block_step's streams (CUDA events through the wrapper, and as a CUDA
-    graph), each held against its twin → one JSON line."""
+    graph, and each node traced), each held against its twin → one JSON
+    line."""
     import json
 
     from ..kernels.sp_recon import kmv_sparse_compose, kmv_sparse_compose_ref
@@ -159,18 +193,23 @@ def main() -> int:
     res = {"card": name}
     for what, (prev, args, chg) in (("random", step_inputs(dev)),
                                     ("captured", cap[1:4])):
+        want = kmv_sparse_compose_ref(prev, *args, chg)
         out = kmv_sparse_compose(prev, *args, chg)
-        exact = bool(torch.equal(out, kmv_sparse_compose_ref(prev, *args,
-                                                             chg)))
+        exact = bool(torch.equal(out, want))
 
         def step():
             kmv_sparse_compose(prev, *args, chg, out=out)
 
         nbytes = sparse_bytes(prev, args, chg)
-        res[what] = dict(exact=exact, ms=time_ms(step), graph_ms=graph_ms(step),
+        res[what] = dict(ms=time_ms(step), graph_ms=graph_ms(step),
                          bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_MS,
-                         M=int(args[3].shape[1]), S=int(args[2].shape[0]))
+                         M=int(args[3].shape[1]), S=int(args[2].shape[0]),
+                         nodes_us=node_split(step))
         res[what]["share"] = res[what]["bound_ms"] / res[what]["graph_ms"]
+        # again after every timed call: each left the cell scratch clean
+        out.fill_(0)
+        res[what]["exact"] = exact and bool(torch.equal(
+            kmv_sparse_compose(prev, *args, chg, out=out), want))
     print(json.dumps(res), flush=True)
     return 0 if res["random"]["exact"] and res["captured"]["exact"] else 1
 

@@ -13,7 +13,9 @@ that changed at or below `insign_lines`; then and-ed with the host's
 
 ``msv1_paint`` runs a whole window of B streams: csrc/msv1_paint.cu for
 tensors on the card (ONE launch: MSV1 has no motion, so the time loop runs
-inside the kernel, each pixel carried in a register), its plain twin
+inside the kernel, each pixel carried in a register; its staged instance
+copies a warp's commands into shared memory ahead of the loop, its scalar
+one takes unaligned views), its plain twin
 ``msv1_paint_ref`` (``paint_frame_ref`` step by step) for tensors on the
 CPU.  It returns the frames and each step's pixel-diff flag; the block-row
 half and the combine are torch ops on [B, T] (``signif_from``).  The
@@ -24,6 +26,8 @@ u32 words (colours, frames) are int32 tensors holding the bits (device.py).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -157,6 +161,10 @@ def msv1_paint(init: torch.Tensor, btype: torch.Tensor, sel: torch.Tensor,
     diff = torch.empty((B, T), dtype=torch.int32, device=init.device)
     if B and T and Y and X:
         lib = _build.load()
+        instance = MSV1_INSTANCES[lib.jsp_msv1_paint_instance(
+            init.data_ptr(), init.stride(0), sel.data_ptr(), sel.stride(0),
+            sel.stride(1), colors.data_ptr(), colors.stride(0),
+            colors.stride(1), out.data_ptr(), out.stride(0), out.stride(1))]
         with torch.cuda.device(init.device):
             rc = lib.jsp_msv1_paint(
                 init.data_ptr(), init.stride(0), btype.data_ptr(),
@@ -168,12 +176,21 @@ def msv1_paint(init: torch.Tensor, btype: torch.Tensor, sel: torch.Tensor,
                 torch.cuda.current_stream(init.device).cuda_stream)
         _build.check(rc, what)
         msv1_paint.launches += 1
+        msv1_paint.by_instance[instance] += 1
+        msv1_paint.last_instance = instance
     else:
         diff.zero_()
     return out, diff != 0
 
 
+#: the kernel's instances, by jsp_msv1_paint_instance's answer: commands
+#: staged in shared memory (16-byte init and frames, 4-byte sel, 8-byte
+#: colour pairs), or loads from device memory every step
+MSV1_INSTANCES = ("scalar", "staged")
 msv1_paint.launches = 0  # kernel launches (the plain path does not count)
+# the launches per instance, and the instance of the last one
+msv1_paint.by_instance = collections.Counter()
+msv1_paint.last_instance = None
 
 
 def signif_from(btype, changes, init_valid, diff, insignificant_blocks,

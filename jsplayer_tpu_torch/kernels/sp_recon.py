@@ -611,10 +611,10 @@ def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
     out [B, Y, X] (allocated unless given; it must not alias prev).
 
     CUDA kernel csrc/kmv_sparse.cu for tensors on the card — one call for
-    all B streams: a fill of its per-cell scratch, the tile-owner pass and
-    the compose; the plain twin only for tensors on the CPU.  Strided views
-    such as bcode[:, t] of a window are fine where their rows are
-    contiguous."""
+    all B streams: the tile-owner pass and the compose, over a per-cell
+    scratch that the compose leaves as it found it (``cell_scratch``); the
+    plain twin only for tensors on the CPU.  Strided views such as
+    bcode[:, t] of a window are fine where their rows are contiguous."""
     if prev.device.type == "cpu":
         return cpu_result(kmv_sparse_compose_ref(
             prev, bcode, mvk, tiles, tile_idx, tile_yx, changed), out)
@@ -649,8 +649,7 @@ def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
         raise IndexError(f"{what}: a tile gather from zero rows (as "
                          f"jnp.take refuses)")
     if B and Y and X:
-        # per block cell: owner header and a list of partial tiles
-        cells = torch.empty((B, nb, 8), dtype=torch.int32, device=prev.device)
+        cells = cell_scratch(prev.device, B * nb)
         lib = _build.load()
         with torch.cuda.device(prev.device):
             rc = lib.jsp_kmv_sparse_compose(
@@ -661,12 +660,33 @@ def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
                 tile_idx.data_ptr(), tile_idx.stride(0), tile_yx.data_ptr(),
                 tile_yx.stride(0), cells.data_ptr(), B, Y, X, mvk.shape[-2],
                 M, torch.cuda.current_stream(prev.device).cuda_stream)
+        if rc != 0:  # the compose may not have put the headers back
+            _CELLS.pop(prev.device, None)
         _build.check(rc, what)
         kmv_sparse_compose.launches += 1
     return out
 
 
 kmv_sparse_compose.launches = 0  # kernel launches (the plain path does not count)
+
+#: device → csrc/kmv_sparse.cu's per-cell scratch, [n, 8] int32: a cell's
+#: owner header (top, full, count - 1, -) and its list of partial tiles
+_CELLS: dict = {}
+
+
+def cell_scratch(device: torch.device, cells: int) -> torch.Tensor:
+    """At least `cells` cells of kmv_sparse_compose's scratch on `device`,
+    every header -1.  Made (filled with -1) once and kept: each call's
+    compose writes back -1 into every header it read, so the scratch stays
+    clean from call to call, in stream order.  One made while a CUDA graph
+    is being captured is not kept: its fill is a node of that graph."""
+    have = _CELLS.get(device)
+    if have is not None and have.shape[0] >= cells:
+        return have
+    got = torch.full((cells, 8), -1, dtype=torch.int32, device=device)
+    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        _CELLS[device] = got
+    return got
 
 
 def compose_frame_kmv_sparse(prev, bcode, mvk, tiles, tile_yx):

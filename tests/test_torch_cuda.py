@@ -18,8 +18,9 @@ from test_torch_bc_cases import BC_CASES, run_bc_case
 from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
     rows_view
 from test_torch_lane_cases import LANE_CASES, run_lane_case
-from test_torch_msv1_cases import MSV1_CASES, run_msv1_case
-from test_torch_sparse_cases import SPARSE_CASES, run_sparse_case
+from test_torch_msv1_cases import MSV1_CASES, run_msv1_case, vector_path
+from test_torch_sparse_cases import SPARSE_CASES, SPARSE_SEQUENCES, \
+    run_sparse_case
 from test_torch_rans_cases import RANS_CASES, offset_view, rans_case_inputs
 
 pytestmark = pytest.mark.cuda
@@ -709,6 +710,63 @@ def test_sparse_kernel_cases(dev, case):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("seq", sorted(SPARSE_SEQUENCES))
+def test_sparse_kernel_sequences(dev, seq):
+    """SPARSE_SEQUENCES' steps one after another on the card, each against
+    its twin: the cell scratch the calls share must be clean at every call
+    (fewer tiles after more, M = 0 after tiles, a stream unchanged after it
+    had tiles and changed again)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose_ref
+
+    for case in SPARSE_SEQUENCES[seq]:
+        prev, args, chg, got = run_sparse_case(case, dev)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kmv_sparse_compose_ref(prev, *args, chg)), \
+            case
+
+
+def test_sparse_kernel_graph_replay(dev):
+    """Two steps of different layouts (more tiles, then fewer) captured in
+    one CUDA graph and replayed three times, an eager call between the
+    replays: every out against its twin.  The first capture starts without
+    a kept scratch (its fill becomes a node of the graph), the second with
+    one."""
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+    from test_torch_sparse_cases import sparse_case
+
+    steps = []
+    for case in SPARSE_SEQUENCES["fewer_tiles"]:
+        prev, args, chg = sparse_case(case)
+        want = P.kmv_sparse_compose_ref(prev, *args, chg)
+        d = [prev.to(dev), [a.to(dev) for a in args], chg.to(dev)]
+        steps.append((d, torch.full_like(d[0], -7), want))
+
+    def calls():
+        for (pv, a, c), out, _ in steps:
+            P.kmv_sparse_compose(pv, *a, c, out=out)
+
+    for kept in (False, True):
+        P._CELLS.pop(dev, None)
+        if kept:
+            calls()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            calls()
+        assert (dev in P._CELLS) == kept
+        for _ in range(3):
+            for _, out, _ in steps:
+                out.fill_(-7)
+            graph.replay()
+            torch.cuda.synchronize()
+            for _, out, want in steps:
+                assert torch.equal(out.cpu(), want)
+            calls()
+            torch.cuda.synchronize()
+            for _, out, want in steps:
+                assert torch.equal(out.cpu(), want)
+
+
 def test_sparse_kernel_rejects_aliased_out_and_wrong_types(dev):
     from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose
 
@@ -768,12 +826,18 @@ def test_sparse_scan_on_the_card(dev, B, T, Y, X, M):
 def test_msv1_kernel_cases(dev, case):
     """csrc/msv1_paint.cu against its plain twin, bit for bit, frames and
     diff flags, on tests/test_torch_msv1_cases.py MSV1_CASES: offset views
-    (the scalar loads), window slices, rows past 128 columns and short of
-    them, insignificant lines, every block painted or none, sel >= 8."""
-    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint_ref
+    (the scalar instance), window slices, rows past 128 columns and short
+    of them, warps of 8 blocks part out of the frame, windows around the
+    ring's depth and the diff mask's flush, insignificant lines, every
+    block painted or none, sel >= 8; each through the instance its views
+    pick."""
+    from jsplayer_tpu_torch.kernels.msv1_paint import (msv1_paint,
+                                                       msv1_paint_ref)
 
     args, frames, diff = run_msv1_case(case, dev)
     torch.cuda.synchronize()
+    assert msv1_paint.last_instance == (
+        "staged" if vector_path(case) else "scalar")
     want_f, want_d = msv1_paint_ref(*args[:4], args[6])
     torch.testing.assert_close(frames, want_f, rtol=0, atol=0)
     assert torch.equal(diff, want_d)

@@ -143,6 +143,24 @@ def test_probe_matches_pallas(script, name, case, mode):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("name,case,fn", [
+    ("exp_pallas_ds2", "passthru", "torch_passthru"),
+    ("exp_pallas_bisect", "transpose", "torch_block_transpose")])
+def test_library_call_matches_pallas(script, name, case, fn):
+    """The one PyTorch call that chip_smoke.py times beside a ds_probe mode
+    (its library_ms), on a Y that BH divides, against the script's Pallas
+    kernel."""
+    from jsplayer_tpu_torch.experiments import probe_step
+
+    mod = script(name)
+    f = frames_u32((T, NROWS * BH, X), seed=17)
+    block = BLOCKS[case]()
+    want = np.asarray(interpret_call(getattr(mod, f"k_{case}"), block,
+                                     (T, block[0] * NROWS, block[1]), f))
+    got = getattr(probe_step, fn)(t32(f), BH)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("name,case,mode", PROBES)
 def test_probe_shapes_match_scripts_at_full_size(name, case, mode):
     """probes.probe_shape at the scripts' own sizes (1080p, BH=128, T=64
@@ -220,6 +238,39 @@ def test_kmv_bytes_counts_what_each_pixel_reads(smoke):
     words = (4 + 4 + 3) + (4 + 4)  # stream 0 has one data pixel
     assert smoke.kmv_bytes(pc, mvk, chg) == 4 * words + 32 + 2
     assert smoke.kmv_bytes(pc, mvk, chg, red) == 4 * words + 32 + 2 + 8
+
+
+def test_msv1_bytes_count_the_painted_blocks():
+    """experiments/msv1_step's bound: init read and every frame written
+    once, btype read, 16 bytes of sel and 32 of colours a painted block, 4
+    bytes of diff a step; at the sector grain, each painted block's sel
+    rows as the 32-byte sectors they lie in (8 blocks a sector row) and
+    btype as whole sectors."""
+    from jsplayer_tpu_torch.experiments.msv1_step import (msv1_bytes,
+                                                          msv1_sector_bytes)
+
+    init = torch.zeros((1, 4, 64), dtype=torch.int32)
+    frames = torch.zeros((1, 2, 4, 64), dtype=torch.int32)
+    bt = torch.zeros((1, 2, 16), dtype=torch.uint8)
+    bt[0, 0, 0], bt[0, 0, 9], bt[0, 1, 3] = 1, 2, 1  # sector rows 0, 1; 0
+    assert msv1_bytes(init, bt, frames) == 1024 + 32 + 2048 + 48 * 3 + 8
+    assert msv1_sector_bytes(init, bt, frames) == (
+        1024 + 2048 + 32 * 2 + 4 * 32 * 3 + 32 * 3 + 8)
+
+
+def test_sparse_bytes_count_one_source_word_a_pixel():
+    """experiments/sparse_step's bound: out written and one source word
+    read a pixel for every stream, and the commands of the changed streams
+    only (bcode, mvk, tile_idx, tile_yx), and changed."""
+    from jsplayer_tpu_torch.experiments.sparse_step import sparse_bytes
+
+    i32 = dict(dtype=torch.int32)
+    prev = torch.zeros((2, 16, 32), **i32)
+    args = [torch.zeros((2, 2), dtype=torch.uint8),
+            torch.zeros((2, 2, 2), **i32), torch.zeros((3, 256), **i32),
+            torch.zeros((2, 4), **i32), torch.zeros((2, 4, 2), **i32)]
+    chg = torch.tensor([True, False])
+    assert sparse_bytes(prev, args, chg) == 8 * 1024 + (2 + 16 + 16 + 32) + 2
 
 
 @pytest.mark.parametrize("name", ["sp_compose_general", "sp_motion_patch",

@@ -7,6 +7,8 @@ against the JAX package's decode_batch on the CPU).  The tests here hold
 the table to what it claims to cover.  numpy and torch only: the card side
 runs where jax is absent."""
 
+import os
+import re
 import zlib
 
 import numpy as np
@@ -27,7 +29,11 @@ torch.set_num_threads(1)
 #:           u32 colours; "all": every block painted with sel < 8; "none":
 #:           nothing painted; "high": every block painted, every sel >= 8
 #: changes and init_valid are random; colours and init have the top bit set
-#: in half their words.
+#: in half their words.  The staged instance copies sel and colours RING
+#: steps ahead (its ring's depth) and flushes a diff mask every FLUSH steps:
+#: T around both picks its edges; X = 352 (CIF) and 320 tile its warps of 8
+#: MSV1 blocks exactly, X = 36, 20 and 520 leave part of the last warp out.
+RING, FLUSH = 4, 64
 MSV1_CASES = {
     "random": dict(B=2, T=5, Y=48, X=64),
     "narrow": dict(B=3, T=4, Y=20, X=36),
@@ -40,6 +46,17 @@ MSV1_CASES = {
     "sel_high": dict(B=2, T=3, Y=16, X=32, cmds="high"),
     "b1_t1": dict(B=1, T=1, Y=8, X=8),
     "b5": dict(B=5, T=2, Y=12, X=20, insign=4),
+    "ring_under": dict(B=2, T=RING - 1, Y=8, X=64),
+    "ring_depth": dict(B=2, T=RING, Y=12, X=32, insign=5),
+    "ring_over": dict(B=2, T=RING + 1, Y=8, X=96),
+    "flush_t64": dict(B=2, T=FLUSH, Y=8, X=32, insign=2),
+    "flush_t65": dict(B=2, T=FLUSH + 1, Y=8, X=48),
+    "flush_t130": dict(B=1, T=2 * FLUSH + 2, Y=8, X=32, insign=3),
+    "cif_width": dict(B=2, T=6, Y=8, X=352, insign=1),
+    "qvga_width": dict(B=2, T=5, Y=12, X=320),
+    "all_painted_long": dict(B=2, T=FLUSH + 6, Y=16, X=64, cmds="all"),
+    "insign_last_row": dict(B=2, T=6, Y=16, X=64, insign=15),
+    "slice_long": dict(B=2, T=FLUSH + 3, Y=8, X=32, layout="slice"),
 }
 
 
@@ -135,8 +152,9 @@ def run_msv1_case(name, device):
 
 
 def vector_path(name):
-    """Whether the kernel takes its 16-byte loads and stores: every layout
-    but offset (MSV1 frames are whole blocks, so X % 4 == 0)."""
+    """Whether the kernel takes its staged instance (16-byte loads and
+    stores, copies of 4-byte sel words and 8-byte colour pairs): every
+    layout but offset (MSV1 frames are whole blocks, so X % 4 == 0)."""
     return spec(name)["layout"] != "offset"
 
 
@@ -155,9 +173,32 @@ def test_msv1_cases_cover_shapes_layouts_and_commands():
             ("none", lambda c: c["cmds"] == "none"),
             ("high", lambda c: c["cmds"] == "high"),
             ("b1_t1", lambda c: c["B"] == 1 and c["T"] == 1),
-            ("b5", lambda c: c["B"] == 5)):
+            ("b5", lambda c: c["B"] == 5),
+            ("under_ring", lambda c: c["T"] == RING - 1),
+            ("ring", lambda c: c["T"] == RING),
+            ("over_ring", lambda c: c["T"] == RING + 1),
+            ("flush", lambda c: c["T"] == FLUSH),
+            ("past_flush", lambda c: c["T"] == FLUSH + 1),
+            ("two_flushes", lambda c: c["T"] > 2 * FLUSH),
+            ("cif", lambda c: c["X"] == 352),
+            ("x320", lambda c: c["X"] == 320),
+            ("warp_part", lambda c: (c["X"] // 4) % 8 != 0),
+            ("long_all", lambda c: c["cmds"] == "all" and c["T"] > FLUSH),
+            ("long_slice", lambda c: c["layout"] == "slice"
+             and c["T"] > FLUSH),
+            ("insign_last", lambda c: c["insign"] == c["Y"] - 1)):
         assert any(claim(c) for c in specs.values()), what
     assert not all(vector_path(n) for n in MSV1_CASES)
+
+
+def test_ring_and_flush_match_the_kernel():
+    """RING and FLUSH are csrc/msv1_paint.cu's kRing and kChunk."""
+    src = open(os.path.join(os.path.dirname(__file__), os.pardir,
+                            "jsplayer_tpu_torch", "csrc",
+                            "msv1_paint.cu")).read()
+    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+           for k in ("kRing", "kChunk")}
+    assert got == {"kRing": RING, "kChunk": FLUSH}
 
 
 def test_msv1_cases_hold_every_btype_and_index():

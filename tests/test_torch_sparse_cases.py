@@ -67,6 +67,21 @@ SPARSE_CASES = {
     "tiles_wide": dict(B=2, Y=48, X=64, layout="tiles_wide", yx="host"),
     "x_not_4": dict(B=2, Y=48, X=70, yx="offgrid", M=8),
     "b5": dict(B=5, Y=32, X=64, changed=[1, 0, 1, 1, 0], yx="dup"),
+    # steps of one shape that SPARSE_SEQUENCES runs one after another
+    "seq_many": dict(B=2, Y=40, X=56, yx="offgrid", M=12, idx="inside"),
+    "seq_few": dict(B=2, Y=40, X=56, yx="grid", M=2),
+    "seq_none": dict(B=2, Y=40, X=56, M=0),
+    "seq_unchanged": dict(B=2, Y=40, X=56, yx="offgrid", M=6,
+                          changed=[1, 0]),
+}
+
+#: name → SPARSE_CASES steps of one shape run in order on one device: the
+#: kernel's per-cell scratch, kept from call to call, must be clean at
+#: every call (tests/test_torch_cuda.py test_sparse_kernel_sequences)
+SPARSE_SEQUENCES = {
+    "fewer_tiles": ("seq_many", "seq_few"),
+    "m0_after_tiles": ("seq_many", "seq_none"),
+    "unchanged_after_tiles": ("seq_many", "seq_unchanged", "seq_few"),
 }
 
 
@@ -282,6 +297,7 @@ def test_sparse_cases_cover_shapes_and_layouts():
             ("window_view", lambda c: c["layout"] == "window"),
             ("tiles_offset", lambda c: c["layout"] == "tiles_offset"),
             ("tiles_wide", lambda c: c["layout"] == "tiles_wide"),
+            ("m0", lambda c: c["M"] == 0),
             ("m1", lambda c: c["M"] == 1),
             ("m_nb", lambda c: c["M"] == np.prod(grid(c["Y"], c["X"]))),
             ("b1", lambda c: c["B"] == 1),
@@ -290,6 +306,41 @@ def test_sparse_cases_cover_shapes_and_layouts():
             ("k8", lambda c: c["K"] == 8),
             ("unchanged", lambda c: not all(c["changed"]))):
         assert any(claim(c) for c in specs), what
+
+
+def test_sparse_sequences_reuse_one_shape():
+    """Each sequence's steps share B, Y and X (so the same cells of the
+    scratch are read again), and the sequences hold what their names say:
+    fewer tiles after more, M = 0 after tiles, and a stream that had tiles,
+    then is unchanged, then changes again."""
+    for seq, steps in SPARSE_SEQUENCES.items():
+        specs = [spec(n) for n in steps]
+        assert len({(c["B"], c["Y"], c["X"]) for c in specs}) == 1, seq
+    many, few = (spec(n) for n in SPARSE_SEQUENCES["fewer_tiles"])
+    assert many["M"] > few["M"] > 0
+    assert [spec(n)["M"] for n in SPARSE_SEQUENCES["m0_after_tiles"]] == [
+        many["M"], 0]
+    steps = [spec(n) for n in SPARSE_SEQUENCES["unchanged_after_tiles"]]
+    assert [c["changed"][1] for c in steps] == [1, 0, 1]
+    assert steps[0]["M"] > 0
+
+
+def test_cell_scratch_is_kept_clean_and_grows():
+    """The wrapper's scratch: every header -1, one tensor kept a device and
+    handed out again while it is large enough, a larger one when not."""
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    dev = torch.device("cpu")
+    P._CELLS.pop(dev, None)
+    try:
+        a = P.cell_scratch(dev, 5)
+        assert a.shape == (5, 8) and bool((a == -1).all())
+        assert P.cell_scratch(dev, 3) is a
+        b = P.cell_scratch(dev, 9)
+        assert b.shape == (9, 8) and bool((b == -1).all())
+        assert P._CELLS[dev] is b
+    finally:
+        P._CELLS.pop(dev, None)
 
 
 def test_sparse_cases_hold_every_code_index_start_and_vector():
