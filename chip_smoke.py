@@ -93,8 +93,13 @@ move on this run's data over 3.35 TB/s; the B=1 scans add a DRAM-only
 bound without the reads of prev, the step before's out, warm in L2; the
 rANS decodes add Msym/s.
 ds_probe's block_transpose mode also gives torch's own transpose copy
-(`library_ms`) on a [4, 1024, 1920] input, and its passthru mode torch's
-strided-slice copy on [64, 1024, 1920], beside the kernel's time there.
+(`library_ms`, `library_graph_ms`) on a [4, 1024, 1920] input, its passthru
+mode torch's strided-slice copy on [64, 1024, 1920], and its hpair_i32 and
+wpair_i32 modes torch's add of two strided views on [4, 1024, 1920], each
+beside the kernel's time there.  passthru and hpair_i32 must take their
+16-byte instances at both shapes and in the experiments' run, and passthru
+must equal torch's slice copy (of the zero-padded frames at 1080 rows) bit
+for bit.
 
 Any failure raises (non-zero exit).  Without CUDA it exits 2 before doing
 anything; without the repository around it the first import fails.  The
@@ -381,8 +386,10 @@ def kernel_counters() -> dict:
 def count_launches(fn):
     """Run fn() with every kernel's launch count set to 0 just before it →
     (fn's result, {kernel: launches during fn}); ds_probe's launches per
-    mode under "ds_probe_modes", rans_decode_aligned's and msv1_paint's per
-    instance under "rans_aligned_instances" and "msv1_instances"."""
+    mode under "ds_probe_modes", and per instance of ds_probe's row modes
+    (passthru, hpair_i32: {mode: {instance: launches}}),
+    rans_decode_aligned and msv1_paint under "ds_probe_instances",
+    "rans_aligned_instances" and "msv1_instances"."""
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
     from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
     from jsplayer_tpu_torch.kernels.rans_lanes import rans_decode_aligned
@@ -391,11 +398,14 @@ def count_launches(fn):
     for w in counters.values():
         w.launches = 0
     ds_probe.by_mode.clear()
+    ds_probe.by_instance.clear()
     rans_decode_aligned.by_instance.clear()
     msv1_paint.by_instance.clear()
     res = fn()
     got = {name: w.launches for name, w in counters.items()}
     got["ds_probe_modes"] = dict(ds_probe.by_mode)
+    got["ds_probe_instances"] = {m: dict(c) for m, c in
+                                 ds_probe.by_instance.items()}
     got["rans_aligned_instances"] = dict(rans_decode_aligned.by_instance)
     got["msv1_instances"] = dict(msv1_paint.by_instance)
     return res, got
@@ -1476,6 +1486,8 @@ def phase_validate(card: str) -> dict:
 PROBE_DEPTH = {"ds2_fields": 64, "bitcast_fold": 64, "passthru": 64,
                "pack_h": 64, "sum4": 64, "hpair_i32": 4, "hpair_lowbyte": 4,
                "wpair_i32": 4, "block_transpose": 4}
+#: the ds_probe modes with a 16-byte and a 4-byte instance (rows_kernel)
+ROW_MODES = ("passthru", "hpair_i32")
 
 
 def rand_dev(shape, seed):
@@ -1487,7 +1499,9 @@ def phase_experiment_kernels(card: str) -> dict:
     stream) and an odd shape; every ds_probe mode at its script's shape
     (BH=128, a partial last block); each bit-exact against its twin."""
     from jsplayer_tpu_torch.experiments.kmv_step import ds2_inputs
-    from jsplayer_tpu_torch.experiments.probes import (probe_read_words,
+    from jsplayer_tpu_torch.experiments.probe_step import CALLS, torch_passthru
+    from jsplayer_tpu_torch.experiments.probes import (padded,
+                                                       probe_read_words,
                                                        probe_ref)
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
     from jsplayer_tpu_torch.kernels.rgb_convert import ds2_pack
@@ -1536,6 +1550,14 @@ def phase_experiment_kernels(card: str) -> dict:
         err = max_abs_err(got, want)
         require(torch.equal(got, want),
                 f"ds_probe {mode} [{depth},{Y},{X}] bit-exact vs plain")
+        if mode in ROW_MODES:
+            require(ds_probe.last_instance == "vec",
+                    f"{mode} [{depth},{Y},{X}] ran its 16-byte instance "
+                    f"({ds_probe.last_instance})")
+        if mode == "passthru":
+            require(torch.equal(got, torch_passthru(padded(f, 128))),
+                    f"passthru [{depth},{Y},{X}] bit-exact vs torch's slice "
+                    f"copy of the zero-padded frames")
         out = torch.empty_like(got)
 
         def call():
@@ -1549,8 +1571,8 @@ def phase_experiment_kernels(card: str) -> dict:
                                time_ms(call), graph_ms(call),
                                time_ms(lambda: probe_ref(f, mode)), nbytes))
         del got, want, out
-    modes["block_transpose"].update(phase_transpose_yardstick(card))
-    modes["passthru"].update(phase_passthru_yardstick(card))
+    for mode in CALLS:
+        modes[mode].update(phase_library_yardstick(card, mode))
     pack_ms = time_ms(lambda: ds2_pack(frames[64]))
     log(f"ds2_pack [64,{Y},{X}] beside ds2_fields: {pack_ms:.4f} ms/call "
         f"({card})")
@@ -1563,75 +1585,47 @@ def phase_experiment_kernels(card: str) -> dict:
     return res
 
 
-def phase_transpose_yardstick(card: str) -> dict:
-    """block_transpose beside torch's own transpose copy on [4, 1024, 1920]
-    (Y a multiple of BH, so one PyTorch call computes the function),
-    both bit-exact against the twin → {"library_ms", "library_graph_ms",
-    "library_shape", "y1024": the kernel's numbers there}."""
-    from jsplayer_tpu_torch.experiments.probe_step import (
-        torch_block_transpose)
-    from jsplayer_tpu_torch.experiments.probes import probe_ref
-    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
-
-    f = rand_dev((4, 1024, X), 1024)
-    want = probe_ref(f, "block_transpose")
-    got = ds_probe(f, "block_transpose")
-    lib = torch_block_transpose(f)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want) and torch.equal(lib, want),
-            "block_transpose and torch's transpose copy bit-exact on "
-            "[4,1024,1920]")
-    out = torch.empty_like(want)
-
-    def call():
-        ds_probe(f, "block_transpose", out=out)
-
-    lib_ms = time_ms(lambda: torch_block_transpose(f))
-    lib_graph = graph_ms(lambda: torch_block_transpose(f))
-    res = step_report("ds_probe block_transpose", f"[4,1024,{X}], "
-                      f"bit-exact", card, time_ms(call), graph_ms(call),
-                      time_ms(lambda: probe_ref(f, "block_transpose")),
-                      io_bytes(f, want))
-    log(f"torch transpose copy [4,1024,{X}]: {lib_ms:.4f} ms/call, "
-        f"{lib_graph:.4f} as a CUDA graph, "
-        f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph) ({card})")
-    return dict(library_ms=lib_ms, library_graph_ms=lib_graph,
-                library_shape=[4, 1024, X], y1024=res)
-
-
-def phase_passthru_yardstick(card: str) -> dict:
-    """passthru beside one PyTorch copy of the same function (a strided
-    slice made contiguous) on [64, 1024, 1920] (Y a multiple of BH), both
-    bit-exact against the twin → {"library_ms", "library_graph_ms",
-    "library_shape", "y1024": the kernel's numbers there}."""
-    from jsplayer_tpu_torch.experiments.probe_step import torch_passthru
+def phase_library_yardstick(card: str, mode: str) -> dict:
+    """ds_probe `mode` beside the one PyTorch call that computes the same
+    function (experiments/probe_step.CALLS: torch's transpose copy, its
+    strided-slice copy, its add of two strided views) at the script's depth
+    and 1024 rows (Y a multiple of BH, as the call needs), both bit-exact
+    against the twin → {"library_ms", "library_graph_ms", "library_shape",
+    "y1024": the kernel's numbers there}."""
+    from jsplayer_tpu_torch.experiments.probe_step import CALLS
     from jsplayer_tpu_torch.experiments.probes import (probe_read_words,
                                                        probe_ref)
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
 
-    shape = (PROBE_DEPTH["passthru"], 1024, X)
-    f = rand_dev(shape, 1025)
-    want = probe_ref(f, "passthru")
-    got = ds_probe(f, "passthru")
-    lib = torch_passthru(f)
+    library = CALLS[mode][1]
+    shape = (PROBE_DEPTH[mode], 1024, X)
+    f = rand_dev(shape, 1024 + PROBE_DEPTH[mode])
+    want = probe_ref(f, mode)
+    got = ds_probe(f, mode)
+    lib = library(f)
     torch.cuda.synchronize()
     require(torch.equal(got, want) and torch.equal(lib, want),
-            f"passthru and torch's slice copy bit-exact on {list(shape)}")
+            f"{mode} and {library.__name__} bit-exact on {list(shape)}")
+    if mode in ROW_MODES:
+        require(ds_probe.last_instance == "vec",
+                f"{mode} {list(shape)} ran its 16-byte instance "
+                f"({ds_probe.last_instance})")
     out = torch.empty_like(want)
 
     def call():
-        ds_probe(f, "passthru", out=out)
+        ds_probe(f, mode, out=out)
 
-    lib_ms = time_ms(lambda: torch_passthru(f))
-    lib_graph = graph_ms(lambda: torch_passthru(f))
-    res = step_report("ds_probe passthru", f"{list(shape)}, bit-exact",
+    lib_ms = time_ms(lambda: library(f))
+    lib_graph = graph_ms(lambda: library(f))
+    res = step_report(f"ds_probe {mode}", f"{list(shape)}, bit-exact",
                       card, time_ms(call), graph_ms(call),
-                      time_ms(lambda: probe_ref(f, "passthru")),
-                      4 * probe_read_words("passthru", *shape)
-                      + io_bytes(want))
-    log(f"torch slice copy {list(shape)}: {lib_ms:.4f} ms/call, "
+                      time_ms(lambda: probe_ref(f, mode)),
+                      4 * probe_read_words(mode, *shape) + io_bytes(want))
+    log(f"{library.__name__} {list(shape)}: {lib_ms:.4f} ms/call, "
         f"{lib_graph:.4f} as a CUDA graph, "
-        f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph) ({card})")
+        f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph); "
+        f"ds_probe {mode} {res['graph_ms']:.4f} "
+        f"({100 * res['bound_ms'] / res['graph_ms']:.1f}%) ({card})")
     del f, want, got, lib, out
     return dict(library_ms=lib_ms, library_graph_ms=lib_graph,
                 library_shape=list(shape), y1024=res)
@@ -1753,6 +1747,10 @@ def phase_experiments(card: str, stream) -> dict:
     missing = set(PROBE_DEPTH) - set(launches["ds_probe_modes"])
     require(not missing, f"phase (e) launched every ds_probe mode "
             f"(missing {sorted(missing)})")
+    inst = launches["ds_probe_instances"]
+    require(inst == {m: {"vec": launches["ds_probe_modes"][m]}
+                     for m in ROW_MODES},
+            f"phase (e) ran the row modes' 16-byte instances ({inst})")
     return launches
 
 

@@ -145,6 +145,8 @@ def load() -> ctypes.CDLL:
         lib.jsp_ds2_pack.argtypes = [p, i64, p, i64, i32, i32, i32, i32, p]
         lib.jsp_ds_probe.restype = i32
         lib.jsp_ds_probe.argtypes = [i32, p, i64, p, i64] + [i32] * 6 + [p]
+        lib.jsp_ds_probe_instance.restype = i32
+        lib.jsp_ds_probe_instance.argtypes = [i32, p, i64, p, i64, i32, i32]
         for name in ("jsp_sp_compose_general", "jsp_sp_motion_patch"):
             fn = getattr(lib, name)
             fn.restype = i32

@@ -20,9 +20,12 @@
 // and does a few integer ops.  On the TPU these probes tested which layout
 // ops Mosaic could lower (strided slices, minor-dim reshapes, lane gathers,
 // u16 bitcasts, transposes); on Hopper any address can be read, so every
-// mode but block_transpose is one thread an output word, reading its
-// inputs straight from device memory (neighbouring threads on neighbouring
-// columns, so a warp's loads coalesce), with 4-byte accesses.
+// mode but passthru, hpair_i32 and block_transpose is one thread an output
+// word, reading its inputs straight from device memory (neighbouring
+// threads on neighbouring columns, so a warp's loads coalesce), with 4-byte
+// accesses.  passthru (a strided row copy) and hpair_i32 (a sum of two
+// whole rows) move whole rows (see rows_kernel): 16-byte units, several
+// loads in flight a thread, a thread block a run of rows.
 // block_transpose moves 32 x 128-word tiles through shared memory with
 // 16-byte loads along x and 16-byte stores along r, transposing 4 x 4
 // sub-blocks in registers and swizzling the tile's 16-byte units so that
@@ -78,17 +81,11 @@ __global__ void ds_probe_kernel(const uint32_t* __restrict__ in,
     } else if (M == kBitcastFold) {  // row pairs, right half folded left
       v = fields(f.at(2 * i, j)) + fields(f.at(2 * i + 1, j)) +
           fields(f.at(2 * i, j + Wo)) + fields(f.at(2 * i + 1, j + Wo));
-    } else if (M == kPassthru) {  // each block's top-left [BH/2, X/2]
-      const int half = BH / 2;
-      const int blk = i / half;
-      v = f.at(blk * BH + (i - blk * half), j);
     } else if (M == kPackH) {
       v = fields(f.at(2 * i, j)) + fields(f.at(2 * i + 1, j));
     } else if (M == kSum4) {
       v = fields(f.at(4 * i, j)) + fields(f.at(4 * i + 1, j)) +
           fields(f.at(4 * i + 2, j)) + fields(f.at(4 * i + 3, j));
-    } else if (M == kHpairI32) {
-      v = f.at(2 * i, j) + f.at(2 * i + 1, j);  // u32 add = wrapping i32 add
     } else if (M == kHpairLowbyte) {
       v = (f.at(2 * i, j) & 0xFFu) + (f.at(2 * i + 1, j) & 0xFFu);
     } else {  // kWpairI32
@@ -181,6 +178,120 @@ __global__ void __launch_bounds__(kTpThreads) block_transpose_kernel(
   }
 }
 
+// The row modes: each output row is one input row or the sum of two.
+//   passthru:  out[c, blk*BH/2 + r, :] = frame[c, blk*BH + r, 0:Wo] for r <
+//              BH/2, Wo = X/2: a strided copy of rows;
+//   hpair_i32: out[c, o, :] = frame[c, 2o, :] + frame[c, 2o + 1, :] (Wo = X,
+//              wrapping int32 sums);
+// a row past Y reads 0.  The one-thread-a-word template kept one 4-byte
+// load in flight a thread (8 KB an SM), too little to cover device
+// memory's latency, and divided per word.  Here a thread block of
+// kPtThreads takes a run of blockDim.y output rows inside one group (a BH
+// block for passthru; the frame for hpair_i32), so the group and row
+// arithmetic is done once a run; its blockDim.x threads walk a row in
+// units of V (16 bytes on the kVec instance, 4 bytes on the other),
+// kPtUnroll units a thread with every load in flight before the first
+// store (64 bytes a thread for passthru, 128 for hpair_i32; 128 KB an SM
+// for passthru at 8 blocks).  The grid has a block for every run (frame,
+// group, run), in order: measured against one wave of resident blocks
+// looping over the runs, it took 2-4% less time, since the card gives each
+// freed slot the next run.  Output rows whose inputs all lie past Y are
+// stored as zero units and read nothing.
+constexpr int kPtThreads = 256;
+constexpr int kPtUnroll = 4;
+
+__device__ __forceinline__ uint4 add_units(uint4 a, uint4 b) {
+  return make_uint4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ uint32_t add_units(uint32_t a, uint32_t b) {
+  return a + b;  // u32 add = wrapping i32 add
+}
+
+// passthru asks for 8 blocks an SM (32 registers a thread; uncapped, ptxas
+// gave it 40, so 6 fit; the two measured within 0.3%).  hpair_i32 holds
+// twice the units in flight and keeps its registers.
+template <int M, typename V>
+__global__ void __launch_bounds__(kPtThreads, M == kPassthru ? 8 : 1)
+    rows_kernel(
+    const uint32_t* __restrict__ in, long long in_cs,
+    uint32_t* __restrict__ out, long long out_cs, int Y, int X, int BH,
+    int Wo, int groups, int grows, int runs) {
+  constexpr int kWords = sizeof(V) / 4;
+  const int W = Wo / kWords;  // units a row; Wo % kWords == 0
+  const int tx = threadIdx.x, TX = blockDim.x;
+  const int per_frame = groups * runs;
+  const int c = blockIdx.x / per_frame;
+  const int rem = blockIdx.x - c * per_frame;
+  const int g = rem / runs;
+  const int r = (rem - g * runs) * blockDim.y + threadIdx.y;
+  if (r >= grows) return;
+  const int o = g * grows + r;
+  // the input row (the first of hpair_i32's two)
+  const int y = M == kPassthru ? g * BH + r : 2 * o;
+  V* dst = (V*)(out + c * out_cs + (long long)o * Wo);
+  if (y >= Y) {
+    for (int u = tx; u < W; u += TX) __stcs(dst + u, V());
+    return;
+  }
+  const V* src = (const V*)(in + c * in_cs + (long long)y * X);
+  const bool pair = M == kHpairI32 && y + 1 < Y;
+  for (int u0 = tx; u0 < W; u0 += TX * kPtUnroll) {
+    V v[kPtUnroll], w[kPtUnroll];
+#pragma unroll
+    for (int k = 0; k < kPtUnroll; ++k) {
+      if (u0 + k * TX < W) {
+        v[k] = __ldcs(src + u0 + k * TX);
+        if (pair) w[k] = __ldcs(src + W + u0 + k * TX);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPtUnroll; ++k)
+      if (u0 + k * TX < W)
+        __stcs(dst + u0 + k * TX, pair ? add_units(v[k], w[k]) : v[k]);
+  }
+}
+
+// Whether a row mode takes its 16-byte instance: whole 16-byte units on
+// both sides (X % 4 == 0 for the input rows, Wo % 4 == 0 for the output
+// rows and the first Wo words of an input row), 16-byte aligned bases and
+// frame strides.  block_transpose makes the same test with X for Wo.
+bool rows_vec(const void* in, long long in_cs, const void* out,
+              long long out_cs, int X, int Wo) {
+  return X % 4 == 0 && Wo % 4 == 0 && (uintptr_t)in % 16 == 0 &&
+         (uintptr_t)out % 16 == 0 && in_cs % 4 == 0 && out_cs % 4 == 0;
+}
+
+template <int M, typename V>
+int launch_rows(cudaStream_t s, const uint32_t* in, long long in_cs,
+                uint32_t* out, long long out_cs, int C, int Y, int X, int BH,
+                int Ho, int Wo) {
+  // threads along a row: enough warps that kPtUnroll units each cover it
+  const int W = Wo / (int)(sizeof(V) / 4);
+  const int warps = (W + 32 * kPtUnroll - 1) / (32 * kPtUnroll);
+  const int tx = 32 * (warps < kPtThreads / 32 ? warps : kPtThreads / 32);
+  const int ty = kPtThreads / tx;
+  // passthru's groups are the BH blocks, of BH/2 output rows each
+  const int groups = M == kPassthru ? (Y + BH - 1) / BH : 1;
+  const int grows = Ho / groups;
+  const int runs = (grows + ty - 1) / ty;
+  const long long blocks = (long long)C * groups * runs;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  rows_kernel<M, V><<<(unsigned)blocks, dim3(tx, ty), 0, s>>>(
+      in, in_cs, out, out_cs, Y, X, BH, Wo, groups, grows, runs);
+  return (int)cudaGetLastError();
+}
+
+template <int M>
+int launch_rows(cudaStream_t s, const uint32_t* in, long long in_cs,
+                uint32_t* out, long long out_cs, int C, int Y, int X, int BH,
+                int Ho, int Wo) {
+  return rows_vec(in, in_cs, out, out_cs, X, Wo)
+             ? launch_rows<M, uint4>(s, in, in_cs, out, out_cs, C, Y, X, BH,
+                                     Ho, Wo)
+             : launch_rows<M, uint32_t>(s, in, in_cs, out, out_cs, C, Y, X,
+                                        BH, Ho, Wo);
+}
+
 template <int M>
 void launch(const dim3& grid, const dim3& block, cudaStream_t s,
             const uint32_t* in, long long in_cs, uint32_t* out,
@@ -190,6 +301,15 @@ void launch(const dim3& grid, const dim3& block, cudaStream_t s,
 }
 
 }  // namespace
+
+// Which instance jsp_ds_probe runs for these views: 1 the 16-byte one, 0
+// the 4-byte one; -1 for a mode with one instance.
+extern "C" int jsp_ds_probe_instance(int mode, const void* in,
+                                     long long in_cs, const void* out,
+                                     long long out_cs, int X, int Wo) {
+  if (mode != kPassthru && mode != kHpairI32) return -1;
+  return rows_vec(in, in_cs, out, out_cs, X, Wo) ? 1 : 0;
+}
 
 // mode: the Mode enum; Ho x Wo: the output plane the wrapper allocated
 // (probes.probe_shape).  Returns cudaGetLastError() after the launch.
@@ -201,6 +321,14 @@ extern "C" int jsp_ds_probe(int mode, const void* in, long long in_cs,
   const uint32_t* src = (const uint32_t*)in;
   uint32_t* dst = (uint32_t*)out;
   const unsigned cz = C < 65535 ? C : 65535;
+  if (mode == kPassthru || mode == kHpairI32) {
+    if (BH % 4) return (int)cudaErrorInvalidValue;
+    return mode == kPassthru
+               ? launch_rows<kPassthru>(s, src, in_cs, dst, out_cs, C, Y, X,
+                                        BH, Ho, Wo)
+               : launch_rows<kHpairI32>(s, src, in_cs, dst, out_cs, C, Y, X,
+                                        BH, Ho, Wo);
+  }
   if (mode == kBlockTranspose) {
     if (BH % 4) return (int)cudaErrorInvalidValue;
     const int nblk = (Y + BH - 1) / BH;
@@ -223,10 +351,8 @@ extern "C" int jsp_ds_probe(int mode, const void* in, long long in_cs,
     break;
     JSP_MODE(kDs2Fields)
     JSP_MODE(kBitcastFold)
-    JSP_MODE(kPassthru)
     JSP_MODE(kPackH)
     JSP_MODE(kSum4)
-    JSP_MODE(kHpairI32)
     JSP_MODE(kHpairLowbyte)
     JSP_MODE(kWpairI32)
 #undef JSP_MODE

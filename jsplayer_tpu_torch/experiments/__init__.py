@@ -18,8 +18,10 @@ card's name and power limit.  ``streams`` builds the bench-mix stream the
 fusion experiment decodes; ``kmv_step`` times the two kmv kernels at a
 B=4 random step, through the wrapper and as a CUDA graph; ``block_step``,
 ``bc_step``, ``probe_step`` and ``lane_step`` do the same for the
-sp_motion.cu modes, bc_compose, block_transpose and the lane path's
-kernels (lane_compose and the two rANS decodes, beside the chain probe's
-bound); ``lane_runs`` profiles the lane path's runs (h) and (j).
+sp_motion.cu modes, bc_compose, the ds_probe modes that one PyTorch call
+matches (block_transpose, passthru, hpair_i32, wpair_i32: each beside that
+call) and the lane path's kernels (lane_compose and the two rANS decodes,
+beside the chain probe's bound); ``lane_runs`` profiles the lane path's
+runs (h) and (j).
 Nothing here imports jax.
 """

@@ -1,20 +1,24 @@
-"""ds_probe's block_transpose mode (csrc/ds_probe.cu) at its script's shape:
-its times as CUDA events around wrapper calls and as a CUDA graph, beside
-the bytes it must move and torch's own transpose copy.
+"""The ds_probe modes that one PyTorch call can match (csrc/ds_probe.cu:
+block_transpose, passthru, hpair_i32, wpair_i32) at their scripts' shapes:
+each one's times as CUDA events around wrapper calls and as a CUDA graph,
+beside the bytes it must move and the PyTorch call.
 
     python -m jsplayer_tpu_torch.experiments.probe_step
 
-prints one JSON line: {"card": "<name>, <power limit>", "block_transpose":
-{"ms": ..., "graph_ms": ..., "bytes": ..., "bound_ms": ..., "exact": ...},
-"block_transpose_y1024": {...}, "torch_transpose_y1024": {...}}.  The
-first is [4, 1080, 1920] with BH = 128 (a partial last block: rows past Y
-read 0); the other two run on [4, 1024, 1920], a multiple of BH, where
-``frames.reshape(C, n, BH, X).transpose(-1, -2).contiguous()`` computes
-the same function in one PyTorch call.  `exact` holds the kernel against
-the plain twin (experiments/probes.py), bit for bit.  The script calls
-only ds_probe's public signature, so copied with experiments/common.py
-into an earlier checkout of the port, it times that checkout's kernel on
-the same inputs in the same way.
+prints one JSON line: {"card": "<name>, <power limit>", <mode>: {"ms": ...,
+"graph_ms": ..., "bytes": ..., "bound_ms": ..., "exact": ...}, <mode>_y1024:
+{...}, torch_<op>_y1024: {...}, ...}.  Each mode runs at its script's shape
+with BH = 128 ([4, 1080, 1920]; passthru [64, 1080, 1920]: a partial last
+block whose rows past Y read 0), then with 1024 rows, a multiple of BH,
+where one PyTorch call computes the same function (torch_<op>, below).
+`exact` holds each call against the plain twin (experiments/probes.py),
+bit for bit; passthru's and hpair_i32's entries add the instance that ran
+(null in a checkout whose ds_probe has none).  The bytes are each needed
+input word read once and each output word written once
+(probes.probe_read_words).  The script calls only ds_probe's public
+signature, so copied with experiments/common.py into an earlier checkout
+of the port, it times that checkout's kernels on the same inputs in the
+same way.
 """
 
 from __future__ import annotations
@@ -46,6 +50,29 @@ def torch_passthru(frames: torch.Tensor, BH: int = BH) -> torch.Tensor:
         .contiguous().reshape(Cn, n * (BH // 2), Xn // 2)
 
 
+def torch_hpair_i32(frames: torch.Tensor, BH: int = BH) -> torch.Tensor:
+    """hpair_i32 (wrapping int32 row-pair sums) in one PyTorch call, for Y
+    a multiple of BH: the even rows added to the odd ones."""
+    return torch.add(frames[:, 0::2], frames[:, 1::2])
+
+
+def torch_wpair_i32(frames: torch.Tensor, BH: int = BH) -> torch.Tensor:
+    """wpair_i32 (wrapping int32 column-pair sums) in one PyTorch call, for
+    Y a multiple of BH and X even: the even columns added to the odd
+    ones."""
+    return torch.add(frames[..., 0::2], frames[..., 1::2])
+
+
+#: mode → (its frame stack depth at its script's shape, the PyTorch call
+#: that computes it where BH divides Y, that call's name in the output)
+CALLS = {
+    "block_transpose": (4, torch_block_transpose, "torch_transpose"),
+    "passthru": (64, torch_passthru, "torch_passthru"),
+    "hpair_i32": (4, torch_hpair_i32, "torch_hpair_i32"),
+    "wpair_i32": (4, torch_wpair_i32, "torch_wpair_i32"),
+}
+
+
 def time_call(fn, want, nbytes) -> dict:
     """{"ms", "graph_ms", "bytes", "bound_ms", "exact"} of fn(), which
     must return `want`."""
@@ -54,28 +81,36 @@ def time_call(fn, want, nbytes) -> dict:
                 bound_ms=nbytes / HBM_BYTES_PER_MS)
 
 
-def time_transpose(device) -> dict:
-    from ..experiments.probes import probe_ref
+def time_mode(mode: str, device) -> dict:
+    """`mode` at its script's shape and at 1024 rows, and its PyTorch call
+    at 1024 rows → {mode: ..., mode_y1024: ..., torch_<op>_y1024: ...}."""
+    from ..experiments.probes import probe_read_words, probe_ref
     from ..kernels.ds_probe import ds_probe
 
+    depth, library, lib_name = CALLS[mode]
     res = {}
-    for name, rows in (("block_transpose", Y), ("block_transpose_y1024",
-                                                 1024)):
-        f = rand_frames((C, rows, X), device, 4)
-        want = probe_ref(f, "block_transpose")
+    for name, rows in ((mode, Y), (f"{mode}_y1024", 1024)):
+        f = rand_frames((depth, rows, X), device, depth + rows)
+        want = probe_ref(f, mode)
         out = torch.empty_like(want)
-        res[name] = time_call(
-            lambda: ds_probe(f, "block_transpose", BH, out=out), want,
-            io_bytes(f, want))
+        nbytes = 4 * probe_read_words(mode, *f.shape) + io_bytes(want)
+        res[name] = time_call(lambda: ds_probe(f, mode, BH, out=out), want,
+                              nbytes)
+        if mode in ("passthru", "hpair_i32"):  # the modes with instances
+            res[name]["instance"] = getattr(ds_probe, "last_instance", None)
         if rows % BH == 0:
-            res["torch_transpose_y1024"] = time_call(
-                lambda: torch_block_transpose(f), want, io_bytes(f, want))
+            res[f"{lib_name}_y1024"] = time_call(lambda: library(f), want,
+                                                 nbytes)
+        del f, want, out
     return res
 
 
 def main() -> None:
     device, line = card()
-    print(json.dumps(dict(card=line, **time_transpose(device))), flush=True)
+    res = dict(card=line)
+    for mode in CALLS:
+        res.update(time_mode(mode, device))
+    print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

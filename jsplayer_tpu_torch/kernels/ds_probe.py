@@ -5,7 +5,10 @@ stack of int32 bit-view frames, one launch for all C.  The modes replace
 the Pallas kernels of scripts/exp_pallas_ds.py, exp_pallas_ds2.py and
 exp_pallas_bisect.py; their plain twins, output shapes and the scripts'
 names for them are in experiments/probes.py.  Tensors on the CPU take the
-twin; tensors on the card launch the kernel or raise.
+twin; tensors on the card launch the kernel or raise.  The row modes
+(passthru, hpair_i32) take a 16-byte instance where the views allow it and
+a 4-byte one elsewhere: ``ds_probe.by_instance`` / ``.last_instance`` say
+which ran.
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ def ds_probe(frames: torch.Tensor, mode: str, BH: int = 128,
         raise ValueError("ds_probe: out must be row-contiguous [C, Ho, Wo]")
     if C and Y and X and Ho and Wo:
         lib = _build.load()
+        instance = lib.jsp_ds_probe_instance(
+            MODES[mode][0], frames.data_ptr(), frames.stride(0),
+            out.data_ptr(), out.stride(0), X, Wo)
         with torch.cuda.device(frames.device):
             rc = lib.jsp_ds_probe(
                 MODES[mode][0], frames.data_ptr(), frames.stride(0),
@@ -62,8 +68,18 @@ def ds_probe(frames: torch.Tensor, mode: str, BH: int = 128,
         _build.check(rc, f"ds_probe[{mode}]")
         ds_probe.launches += 1
         ds_probe.by_mode[mode] += 1
+        if instance >= 0:
+            ds_probe.by_instance[mode][PROBE_INSTANCES[instance]] += 1
+            ds_probe.last_instance = PROBE_INSTANCES[instance]
     return out
 
 
+#: the instances of a mode that has two (passthru, hpair_i32), by
+#: jsp_ds_probe_instance's answer: 4-byte units, or 16-byte units
+PROBE_INSTANCES = ("scalar", "vec")
 ds_probe.launches = 0  # kernel launches (the plain path does not count)
 ds_probe.by_mode = collections.Counter()  # the same, per mode
+# mode → its launches per instance, for the modes that have two; and the
+# instance of the last launch of such a mode
+ds_probe.by_instance = collections.defaultdict(collections.Counter)
+ds_probe.last_instance = None

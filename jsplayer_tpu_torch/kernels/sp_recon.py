@@ -649,7 +649,8 @@ def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
         raise IndexError(f"{what}: a tile gather from zero rows (as "
                          f"jnp.take refuses)")
     if B and Y and X:
-        cells = cell_scratch(prev.device, B * nb)
+        stream = torch.cuda.current_stream(prev.device).cuda_stream
+        cells = cell_scratch(prev.device, stream, B * nb)
         lib = _build.load()
         with torch.cuda.device(prev.device):
             rc = lib.jsp_kmv_sparse_compose(
@@ -659,9 +660,9 @@ def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
                 bcode.stride(0), tiles.data_ptr(), S, tiles.stride(0),
                 tile_idx.data_ptr(), tile_idx.stride(0), tile_yx.data_ptr(),
                 tile_yx.stride(0), cells.data_ptr(), B, Y, X, mvk.shape[-2],
-                M, torch.cuda.current_stream(prev.device).cuda_stream)
+                M, stream)
         if rc != 0:  # the compose may not have put the headers back
-            _CELLS.pop(prev.device, None)
+            _REFILL.add((prev.device, stream))
         _build.check(rc, what)
         kmv_sparse_compose.launches += 1
     return out
@@ -669,23 +670,45 @@ def kmv_sparse_compose(prev: torch.Tensor, bcode: torch.Tensor,
 
 kmv_sparse_compose.launches = 0  # kernel launches (the plain path does not count)
 
-#: device → csrc/kmv_sparse.cu's per-cell scratch, [n, 8] int32: a cell's
+#: (device, CUDA stream) → every csrc/kmv_sparse.cu per-cell scratch handed
+#: to a launch on that stream, oldest first, each [n, 8] int32: a cell's
 #: owner header (top, full, count - 1, -) and its list of partial tiles
 _CELLS: dict = {}
+#: the keys of _CELLS whose newest scratch a failed launch may have left
+#: with headers set: it is refilled in place before its next use
+_REFILL: set = set()
 
 
-def cell_scratch(device: torch.device, cells: int) -> torch.Tensor:
-    """At least `cells` cells of kmv_sparse_compose's scratch on `device`,
-    every header -1.  Made (filled with -1) once and kept: each call's
-    compose writes back -1 into every header it read, so the scratch stays
-    clean from call to call, in stream order.  One made while a CUDA graph
-    is being captured is not kept: its fill is a node of that graph."""
-    have = _CELLS.get(device)
-    if have is not None and have.shape[0] >= cells:
+def cell_scratch(device: torch.device, stream: int,
+                 cells: int) -> torch.Tensor:
+    """At least `cells` cells of kmv_sparse_compose's scratch for launches
+    on `stream` (the raw CUDA stream handle) of `device`, every header -1.
+    Made (filled with -1) once and kept: each call's compose writes back -1
+    into every header it read, so the scratch stays clean from call to
+    call, in stream order, and two streams never share one.
+
+    A scratch once handed out is never released, since a CUDA graph
+    captured with it holds its raw pointer: one too small for a call is
+    kept beside its larger successor, and one that a failed launch left
+    dirty is refilled in place (same storage) before its next use.  That
+    holds 32 bytes a cell, B*NB cells: ~1 MB at B=4 1080p, once for each
+    size a stream grew through.  One made while a CUDA graph is being
+    captured is not kept: its fill is a node of that graph."""
+    key = (device, stream)
+    kept = _CELLS.get(key)
+    capturing = (device.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing())
+    if kept and kept[-1].shape[0] >= cells:
+        have = kept[-1]
+        if key in _REFILL:
+            have.fill_(-1)
+            if not capturing:
+                _REFILL.discard(key)
         return have
     got = torch.full((cells, 8), -1, dtype=torch.int32, device=device)
-    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
-        _CELLS[device] = got
+    if not capturing:
+        _CELLS.setdefault(key, []).append(got)
+        _REFILL.discard(key)
     return got
 
 

@@ -274,6 +274,16 @@ class StreamReader:
                 floor = min(floor, lst[0][0])
         ld.sound_buffer.drop_before(floor)
 
+    def resident_bytes(self) -> int:
+        """Compressed bytes currently held (observability for the window)."""
+        ld = self.loader
+        frames_b = sum(
+            len(f.data) for f in ld.frames
+            if f is not None and f.data is not None)
+        return (ld.buffer.bytes_available(getattr(ld.buffer, "_base", 0))
+                + ld.sound_buffer.bytes_available(
+                    getattr(ld.sound_buffer, "_base", 0)) + frames_b)
+
 
 class _StreamingFrames:
     """Minimal sequence facade over a streaming reader (len = frames parsed

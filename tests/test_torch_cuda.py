@@ -404,6 +404,55 @@ def test_block_transpose_odd_shapes(dev, C, Y, X, BH, offset):
     assert (stack[:, 0] == fill).all() and (stack[:, 2] == fill).all()
 
 
+#: (C, Y, X, BH, offset, pad) → the instance passthru and hpair_i32 take
+ROW_MODE_CASES = {
+    (2, 1080, 1920, 128, 0, 0): ("vec", "vec"),
+    (1, 1080, 1920, 128, 1, 0): ("scalar", "scalar"),
+    (1, 130, 1000, 128, 0, 0): ("vec", "vec"),
+    (65, 37, 45, 12, 0, 0): ("scalar", "scalar"),
+    (2, 300, 132, 128, 0, 0): ("scalar", "vec"),
+    (3, 64, 264, 32, 1, 0): ("scalar", "scalar"),
+    (2, 64, 264, 32, 0, 1): ("scalar", "scalar"),
+    (4, 10, 64, 32, 0, 0): ("vec", "vec"),
+    (5, 200, 96, 8, 0, 0): ("vec", "vec"),
+    (3, 50, 40, 4, 0, 0): ("vec", "vec"),
+    (65, 30, 24, 12, 0, 0): ("vec", "vec"),
+    (4, 37, 1920, 128, 0, 0): ("vec", "vec"),
+    (1, 20, 9000, 16, 0, 0): ("vec", "vec"),
+    (1, 20, 9002, 16, 0, 0): ("scalar", "scalar"),
+}
+
+
+@pytest.mark.parametrize("mode", ["passthru", "hpair_i32"])
+@pytest.mark.parametrize("case", list(ROW_MODE_CASES))
+def test_row_modes_odd_shapes(dev, mode, case):
+    """passthru and hpair_i32 (ds_probe.cu's rows_kernel) against their
+    twins, bit for bit, and the instance that ran: Y not a multiple of BH,
+    Y odd and Y < BH/2 (zero rows, a last row pair with one row past Y),
+    X/2 not a multiple of 4, BH = 4, 8, 12, C = 1 and 65, rows wider than
+    one pass of the block's threads, frames viewed `offset` words into a
+    buffer or `pad` words apart (the 4-byte instance), and an output slot
+    between untouched ones."""
+    from jsplayer_tpu_torch.experiments.probes import probe_ref, probe_shape
+    from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
+
+    C, Y, X, BH, offset, pad = case
+    instance = ROW_MODE_CASES[case][mode == "hpair_i32"]
+    f = rand_u32((C, Y, X), seed=C * 11 + Y + X)
+    want = probe_ref(f, mode, BH)
+    frames = rows_view(f.to(dev), offset, pad)
+    _, Ho, Wo = probe_shape(mode, C, Y, X, BH)
+    fill = 0x7EADBEEF
+    stack = torch.full((C, 3, Ho, Wo), fill, dtype=torch.int32, device=dev)
+    before = ds_probe.by_instance[mode][instance]
+    ds_probe(frames, mode, BH, out=stack[:, 1])
+    torch.cuda.synchronize()
+    assert ds_probe.last_instance == instance
+    assert ds_probe.by_instance[mode][instance] == before + 1
+    torch.testing.assert_close(stack[:, 1].cpu(), want, rtol=0, atol=0)
+    assert (stack[:, 0] == fill).all() and (stack[:, 2] == fill).all()
+
+
 @pytest.mark.parametrize("case", sorted(BC_CASES))
 def test_bc_kernel_cases(dev, case):
     """csrc/bc_compose.cu against its plain twin, bit for bit, on the
@@ -725,46 +774,148 @@ def test_sparse_kernel_sequences(dev, seq):
             case
 
 
+def sparse_on_card(name, dev):
+    """SPARSE_CASES[name] on the card → (prev, args, changed, the twin's out
+    on the CPU)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_sparse_compose_ref
+    from test_torch_sparse_cases import sparse_case
+
+    prev, args, chg = sparse_case(name)
+    want = kmv_sparse_compose_ref(prev, *args, chg)
+    return prev.to(dev), [a.to(dev) for a in args], chg.to(dev), want
+
+
 def test_sparse_kernel_graph_replay(dev):
     """Two steps of different layouts (more tiles, then fewer) captured in
     one CUDA graph and replayed three times, an eager call between the
     replays: every out against its twin.  The first capture starts without
-    a kept scratch (its fill becomes a node of the graph), the second with
-    one."""
+    a kept scratch on its stream (its fill becomes a node of the graph),
+    the second with one (eager calls on the capture's stream first)."""
     from jsplayer_tpu_torch.kernels import sp_recon as P
-    from test_torch_sparse_cases import sparse_case
 
-    steps = []
-    for case in SPARSE_SEQUENCES["fewer_tiles"]:
-        prev, args, chg = sparse_case(case)
-        want = P.kmv_sparse_compose_ref(prev, *args, chg)
-        d = [prev.to(dev), [a.to(dev) for a in args], chg.to(dev)]
-        steps.append((d, torch.full_like(d[0], -7), want))
+    steps = [(pv, a, c, torch.full_like(pv, -7), want) for pv, a, c, want
+             in (sparse_on_card(n, dev)
+                 for n in SPARSE_SEQUENCES["fewer_tiles"])]
 
     def calls():
-        for (pv, a, c), out, _ in steps:
+        for pv, a, c, out, _ in steps:
             P.kmv_sparse_compose(pv, *a, c, out=out)
 
-    for kept in (False, True):
-        P._CELLS.pop(dev, None)
-        if kept:
-            calls()
+    def check():
         torch.cuda.synchronize()
+        for *_, out, want in steps:
+            assert torch.equal(out.cpu(), want)
+
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    key = (dev, s.cuda_stream)
+    for kept in (False, True):
+        P._CELLS.pop(key, None)
+        with torch.cuda.stream(s):
+            if kept:
+                calls()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=s):
+                calls()
+            assert (key in P._CELLS) == kept
+            for _ in range(3):
+                for *_, out, _ in steps:
+                    out.fill_(-7)
+                graph.replay()
+                check()
+                calls()
+                check()
+
+
+def test_sparse_graph_replay_after_the_scratch_grew(dev):
+    """Port fault P1: a graph captured with its stream's kept scratch, then
+    an eager call on that stream at a larger B*NB (the scratch grows), then
+    canaries of the old scratch's size on that stream (where the caching
+    allocator would place them, were the old scratch freed), then the
+    replay: its out equals the twin and every canary is unchanged."""
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    (pv, a, c, want), (pv2, a2, c2, want2) = (
+        sparse_on_card(n, dev) for n in ("seq_many", "edge_tiles_1080"))
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    key = (dev, s.cuda_stream)
+    P._CELLS.pop(key, None)
+    with torch.cuda.stream(s):
+        out = torch.full_like(pv, -7)
+        P.kmv_sparse_compose(pv, *a, c, out=out)
+        # no reference to the scratch here: only the wrapper's may keep it
+        held, cells = P._CELLS[key][-1].data_ptr(), P._CELLS[key][-1].shape
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            calls()
-        assert (dev in P._CELLS) == kept
-        for _ in range(3):
-            for _, out, _ in steps:
-                out.fill_(-7)
-            graph.replay()
-            torch.cuda.synchronize()
-            for _, out, want in steps:
-                assert torch.equal(out.cpu(), want)
-            calls()
-            torch.cuda.synchronize()
-            for _, out, want in steps:
-                assert torch.equal(out.cpu(), want)
+        with torch.cuda.graph(graph, stream=s):
+            P.kmv_sparse_compose(pv, *a, c, out=out)
+        got2 = P.kmv_sparse_compose(pv2, *a2, c2)
+        canaries = [torch.full(cells, 0x5A5A5A5A, dtype=torch.int32,
+                               device=dev) for _ in range(8)]
+        assert [t.data_ptr() for t in P._CELLS[key]][:1] == [held]
+        assert len(P._CELLS[key]) == 2
+        out.fill_(-7)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(got2.cpu(), want2)
+    assert all(bool((t == 0x5A5A5A5A).all()) for t in canaries)
+
+
+def test_sparse_streams_get_their_own_scratch(dev):
+    """Two streams composing at once, each a case of its own, interleaved
+    launch by launch: each stream has its own scratch and every out equals
+    its twin."""
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    cases = [sparse_on_card(n, dev) for n in ("seq_many", "host_layout")]
+    outs = [[torch.full_like(pv, -7) for _ in range(16)]
+            for pv, *_ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for i in range(16):
+        for s, (pv, a, c, _), o in zip(streams, cases, outs):
+            with torch.cuda.stream(s):
+                P.kmv_sparse_compose(pv, *a, c, out=o[i])
+    torch.cuda.synchronize()
+    held = [P._CELLS[(dev, s.cuda_stream)][-1] for s in streams]
+    assert held[0].data_ptr() != held[1].data_ptr()
+    for (*_, want), o in zip(cases, outs):
+        assert all(torch.equal(t.cpu(), want) for t in o)
+
+
+def test_sparse_call_after_a_failed_launch(dev, monkeypatch):
+    """A launch that fails after setting headers (forced: a stand-in for
+    the C entry that dirties the scratch and returns an error) raises; the
+    next call refills the same scratch in place and equals its twin."""
+    from jsplayer_tpu_torch import _build
+    from jsplayer_tpu_torch.kernels import sp_recon as P
+
+    pv, a, c, want = sparse_on_card("seq_many", dev)
+    P.kmv_sparse_compose(pv, *a, c)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = P._CELLS[key][-1]
+    lib = _build.load()
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def jsp_kmv_sparse_compose(*_):
+            scratch.fill_(3)  # headers set, none put back
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_build, "load", Failing)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        P.kmv_sparse_compose(pv, *a, c)
+    assert key in P._REFILL
+    monkeypatch.undo()
+    got = P.kmv_sparse_compose(pv, *a, c)
+    assert P._CELLS[key][-1] is scratch and key not in P._REFILL
+    assert torch.equal(got.cpu(), want)
 
 
 def test_sparse_kernel_rejects_aliased_out_and_wrong_types(dev):

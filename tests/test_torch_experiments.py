@@ -145,11 +145,13 @@ def test_probe_matches_pallas(script, name, case, mode):
 
 @pytest.mark.parametrize("name,case,fn", [
     ("exp_pallas_ds2", "passthru", "torch_passthru"),
-    ("exp_pallas_bisect", "transpose", "torch_block_transpose")])
+    ("exp_pallas_bisect", "transpose", "torch_block_transpose"),
+    ("exp_pallas_bisect", "sub_slice", "torch_hpair_i32"),
+    ("exp_pallas_bisect", "minor_reshape", "torch_wpair_i32")])
 def test_library_call_matches_pallas(script, name, case, fn):
-    """The one PyTorch call that chip_smoke.py times beside a ds_probe mode
+    """Each PyTorch call that chip_smoke.py times beside a ds_probe mode
     (its library_ms), on a Y that BH divides, against the script's Pallas
-    kernel."""
+    kernel (the int32 pair sums wrap in both)."""
     from jsplayer_tpu_torch.experiments import probe_step
 
     mod = script(name)

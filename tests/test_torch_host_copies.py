@@ -720,6 +720,13 @@ def test_mp3_synth_matches_reference():
     assert PS.with_garbage(stream) == JS.with_garbage(stream)
 
 
+def test_stream_reader_resident_bytes_is_a_verbatim_copy():
+    """StreamReader.resident_bytes, which tests/test_torch_streaming_ingest.py
+    holds against the reference's on the same streams."""
+    assert inspect.getsource(PReader.resident_bytes) == \
+        inspect.getsource(JReader.resident_bytes)
+
+
 @pytest.mark.parametrize("name", ["LanePack", "_pick_lanes", "_bucket_steps",
                                   "pack_to_bytes", "pack_from_bytes"])
 def test_lane_transport_host_helper_is_a_verbatim_copy(name):

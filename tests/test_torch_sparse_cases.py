@@ -326,21 +326,35 @@ def test_sparse_sequences_reuse_one_shape():
 
 
 def test_cell_scratch_is_kept_clean_and_grows():
-    """The wrapper's scratch: every header -1, one tensor kept a device and
-    handed out again while it is large enough, a larger one when not."""
+    """The wrapper's scratch: every header -1, kept for each (device,
+    stream) and handed out again while it is large enough, a larger one
+    when not, with the smaller one still held (a captured graph may hold its
+    pointer); another stream gets its own; after a failed launch the same
+    storage is refilled."""
     from jsplayer_tpu_torch.kernels import sp_recon as P
 
     dev = torch.device("cpu")
-    P._CELLS.pop(dev, None)
+    keys = [(dev, 1), (dev, 2)]
+    for key in keys:
+        P._CELLS.pop(key, None)
+        P._REFILL.discard(key)
     try:
-        a = P.cell_scratch(dev, 5)
+        a = P.cell_scratch(dev, 1, 5)
         assert a.shape == (5, 8) and bool((a == -1).all())
-        assert P.cell_scratch(dev, 3) is a
-        b = P.cell_scratch(dev, 9)
+        assert P.cell_scratch(dev, 1, 3) is a
+        b = P.cell_scratch(dev, 1, 9)
         assert b.shape == (9, 8) and bool((b == -1).all())
-        assert P._CELLS[dev] is b
+        assert P._CELLS[(dev, 1)] == [a, b]
+        other = P.cell_scratch(dev, 2, 3)
+        assert other is not b and P._CELLS[(dev, 2)] == [other]
+        b[:, 0] = 7  # headers a failed launch left set
+        P._REFILL.add((dev, 1))
+        assert P.cell_scratch(dev, 1, 9) is b and bool((b == -1).all())
+        assert (dev, 1) not in P._REFILL
     finally:
-        P._CELLS.pop(dev, None)
+        for key in keys:
+            P._CELLS.pop(key, None)
+            P._REFILL.discard(key)
 
 
 def test_sparse_cases_hold_every_code_index_start_and_vector():
