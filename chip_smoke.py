@@ -53,6 +53,27 @@ the most tiles of the port's native sparse emission of the streams; runs
   (l) the same with sparse_lane_payload=True: the tiles rANS-coded on the
       host and decoded by rans_decode_packed, its ingest route.
 
+The (dp, gop) mesh (jsplayer_tpu_torch.pipeline.mesh), every slot on
+cuda:0, the hand kernels launched on every slot:
+
+  (o) run (a)'s streams and configuration on a dp=2, gop=1 mesh (every
+      window PADDED under a mesh), through the outmap timeline;
+  (p) the same on the bc path (run (f)'s configuration);
+  (q) streams 0 and 1 re-encoded with a keyframe every 32 frames, windows
+      of 32, on a dp=2, gop=2 mesh: two keyframe-led windows a dispatch
+      through kmv and bc, then the same streams as lane containers (raw
+      and rans) grouped the same way, each equal to its unsharded run;
+  (r) (after run (m)) run (m)'s streams on a dp=4 mesh, every window equal
+      to run (m)'s;
+  (s) a one-process NCCL group: the mesh's psum of run (o)'s significant
+      frames through all_reduce, then the group destroyed;
+
+and, after the MSV1 runs, jsplayer_tpu_torch.dryrun_multichip(4, "cuda").
+Each mesh run logs its delivered fps beside its unsharded run's (a
+reading: the slots share one card) and its hand kernels' launches, and
+requires one launch a scan step a slot (a window a slot for msv1_paint),
+so no step took a plain version.
+
 MSVideo1: msv1_paint (csrc/msv1_paint.cu, one launch a window) against its
 twin on a random B=8 CIF window of 64 steps, through its staged instance
 (commands in shared memory ahead of the time loop), as in both runs
@@ -96,8 +117,10 @@ ds_probe's block_transpose mode also gives torch's own transpose copy
 (`library_ms`, `library_graph_ms`) on a [4, 1024, 1920] input, its passthru
 mode torch's strided-slice copy on [64, 1024, 1920], and its hpair_i32 and
 wpair_i32 modes torch's add of two strided views on [4, 1024, 1920], each
-beside the kernel's time there.  passthru and hpair_i32 must take their
-16-byte instances at both shapes and in the experiments' run, and passthru
+beside the kernel's time there; the two pair modes and their adds are
+timed there again with a cold L2 (a 256 MB write before each call).  The
+row modes (passthru, hpair_i32, wpair_i32) must take their 16-byte
+instances at both shapes and in the experiments' run, and passthru
 must equal torch's slice copy (of the zero-padded frames at 1080 rows) bit
 for bit.
 
@@ -310,7 +333,7 @@ def phase_kernels(card: str) -> dict:
     return res
 
 
-def run_ingest(avis, still_elision=True, **kw):
+def run_ingest(avis, still_elision=True, window=WINDOW, **kw):
     """Drive the port's pipeline once → (window dicts, stats, seconds)."""
     from jsplayer_tpu_torch import IngestConfig, MemorySource, VideoIngestPipeline
 
@@ -318,7 +341,7 @@ def run_ingest(avis, still_elision=True, **kw):
     t0 = time.perf_counter()
     pipe = VideoIngestPipeline(
         [MemorySource(a) for a in avis],
-        IngestConfig(window=WINDOW, still_elision=still_elision,
+        IngestConfig(window=window, still_elision=still_elision,
                      model_downscale=2, device=str(DEV), **kw))
     batches = list(pipe)
     torch.cuda.synchronize()
@@ -635,6 +658,7 @@ def phase_kmv_runs(card: str, avis, src, models) -> dict:
         "a": run_ingest(avis), "b": run_ingest(avis, emit_frames=False)})
     log(f"kmv path (a)+(b) kernel launches: {launches}")
     for name, (batches, stats, dt) in runs.items():
+        FPS[name] = B * T / dt
         log(f"run ({name}) kmv: {stats}; {B * T} timeline frames in "
             f"{dt:.3f} s = {B * T / dt:.1f} delivered frames/s ({card})")
     concat = sum(r[1]["concat_windows"] for r in runs.values())
@@ -836,6 +860,7 @@ def phase_bc_runs(card: str, avis, src, models) -> dict:
     tensor to the plain epilogue."""
     (bf, stats, dt), launches_f = count_launches(
         lambda: run_ingest(avis, sp_device_path="bc"))
+    FPS["f"] = B * T / dt
     log(f"run (f) bc: {stats}; {B * T} timeline frames in {dt:.3f} s = "
         f"{B * T / dt:.1f} delivered frames/s ({card}); launches "
         f"{launches_f}")
@@ -1121,6 +1146,241 @@ def phase_lane_runs(card: str, conts, src, models) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The (dp, gop) mesh: runs (o)-(r), the one-process NCCL psum (s), the dry
+# run.  Every slot is cuda:0 (the script needs one card), so the slots run
+# one after another: delivered fps beside the unsharded run is a reading
+# only.
+
+#: run name → delivered frames/s, the unsharded runs the mesh runs stand by
+FPS: dict = {}
+#: the hand kernels the mesh paths launch, whose counts each mesh run logs
+MESH_KERNELS = ("kmv_compose", "ds2_pack", "bc_compose", "lane_compose",
+                "rans_decode_aligned", "msv1_paint")
+Q_WINDOW = 32  # run (q): keyframes every 32 frames, windows of 32
+
+
+def card_mesh(dp: int, gop: int):
+    """A (dp, gop) mesh whose every slot is the card."""
+    from jsplayer_tpu_torch.pipeline.mesh import make_mesh
+
+    return make_mesh(dp=dp, gop=gop, devices=[DEV] * (dp * gop))
+
+
+def log_mesh_run(card, name, what, n_windows, frames, dt, ref, launches):
+    FPS[name] = frames / dt
+    log(f"run ({name}) {what}: {n_windows} windows, {frames} timeline "
+        f"frames in {dt:.3f} s = {frames / dt:.1f} delivered frames/s beside "
+        f"{FPS[ref]:.1f} unsharded (run ({ref}); a reading: every slot is "
+        f"one card) ({card}); hand-kernel launches "
+        + ", ".join(f"{k} {launches[k]}" for k in MESH_KERNELS))
+
+
+def require_launches(launches, want: dict, what: str) -> None:
+    """Each kernel of `want` launched exactly that often — one launch a scan
+    step a slot (a window a slot for msv1_paint), so no step took a plain
+    version — and no other compose kernel launched."""
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{what} kernel launches {got} == {want}")
+    require_only(launches, tuple(want), what)
+
+
+def phase_mesh_dp(card: str, avis, src, models) -> tuple[dict, torch.Tensor]:
+    """Runs (o) kmv and (p) bc: runs (a)'s and (f)'s streams and
+    configuration (still-elided, frames and ds2 model tensors) on a dp=2,
+    gop=1 mesh of cuda:0 slots.  Under a mesh every window takes the
+    PADDED layout; through the outmap timeline every frame equals its
+    source frame and every model tensor the plain epilogue, as in runs (a)
+    and (f), so the two equal each other → ({run: launches}, (o)'s count
+    of significant frames on the card)."""
+    mesh = card_mesh(2, 1)
+    res, sig = {}, None
+    for name, ref, path, kernel in (("o", "a", "kmv", "kmv_compose"),
+                                    ("p", "f", "bc", "bc_compose")):
+        (batches, stats, dt), launches = count_launches(
+            lambda: run_ingest(avis, sp_device_path=path, mesh=mesh))
+        log_mesh_run(card, name, f"{path} on a dp=2 mesh, {stats}",
+                     len(batches), B * T, dt, ref, launches)
+        require(stats == {"concat_windows": 0,
+                          "padded_windows": len(batches)},
+                f"run ({name}) every window PADDED under a mesh ({stats})")
+        rows = [w["frames_u32"].shape[0] for w in batches]
+        require_launches(launches, {kernel: sum(2 * r // B for r in rows),
+                                    "ds2_pack": sum(r > 0 for r in rows)},
+                         f"run ({name})")
+        for b in range(B):
+            tl = timeline_rows(batches, b)
+            require(torch.equal(gather(batches, tl, "frames_u32"),
+                                src[b].to(DEV)),
+                    f"run ({name}) stream {b} frames == source frames")
+            check_model(gather(batches, tl, "model_input"), models[b],
+                        f"run ({name}) stream {b}")
+        log(f"run ({name}): every stream's frames and model tensors "
+            f"bit-exact, as run ({ref})")
+        if name == "o":
+            sig = torch.stack([w["significant"].sum() for w in batches]).sum()
+        res[name] = launches
+        del batches
+    return res, sig
+
+
+def keyframe_avis(frames):
+    """The streams' source frames encoded by the native encoder with a
+    keyframe every Q_WINDOW frames, a thread a stream → AVI bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jsplayer_tpu_torch import native
+    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+
+    def encode(f):
+        enc = native.NativeScreenPressorEncoder(4, X, Y)
+        keys = [t % Q_WINDOW == 0 for t in range(T)]
+        chunks = [enc.encode_i(x.reshape(-1)) if k
+                  else enc.encode_p(x.reshape(-1)) for x, k in zip(f, keys)]
+        return mux_avi(chunks, X, Y, 24, codec="SPV4", keyflags=keys)
+
+    with ThreadPoolExecutor(len(frames)) as ex:
+        return list(ex.map(encode, frames))
+
+
+def on_timeline(batches, key):
+    """Dense windows → their `key` tensors joined along time [B, T, ...]."""
+    return torch.cat([w[key] for w in batches], dim=1)
+
+
+def phase_mesh_gop(card: str, frames, src, models) -> dict:
+    """Run (q): streams 0 and 1 re-encoded with a keyframe every 32 frames
+    (B=2 x 128 1080p frames), windows of 32, dense, frames and ds2 model
+    tensors, on a dp=2, gop=2 mesh of cuda:0 slots: G=2 keyframe-led
+    windows a dispatch through kmv and bc, then the same streams
+    transcoded to lane containers (raw and rans, window=32: every window a
+    restart) grouped the same way.  Each equals its unsharded run (which
+    runs first, for its fps), and the source frames (lane: low 24 bits)
+    and the plain epilogue → {path: launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jsplayer_tpu_torch import transcode_to_lane
+
+    t0 = time.perf_counter()
+    avis = keyframe_avis(frames[:2])
+    with ThreadPoolExecutor(4) as ex:
+        conts = {p: list(ex.map(lambda a: transcode_to_lane(
+            a, window=Q_WINDOW, K=2, payload=p), avis))
+            for p in ("raw", "rans")}
+    log(f"run (q) streams: 2 x {T} frames, keyframes every {Q_WINDOW}, "
+        f"encoded and transcoded in {time.perf_counter() - t0:.3f} s")
+    mesh, Bq = card_mesh(2, 2), 2
+    groups = T // Q_WINDOW // 2  # dispatches of G=2 windows
+    steps = groups * 4 * Q_WINDOW  # 4 slots, one window a slot
+    res = {}
+    for name, sources, kw, want in (
+            ("q kmv", avis, dict(sp_device_path="kmv"),
+             {"kmv_compose": steps, "ds2_pack": T // Q_WINDOW}),
+            ("q bc", avis, dict(sp_device_path="bc"),
+             {"bc_compose": steps, "ds2_pack": T // Q_WINDOW}),
+            ("q lane raw", conts["raw"], dict(sp_device_path="lane"),
+             {"lane_compose": steps, "ds2_pack": groups}),
+            ("q lane rans", conts["rans"], dict(sp_device_path="lane"),
+             {"lane_compose": steps, "ds2_pack": groups,
+              "rans_decode_aligned": groups * 4})):
+        plain, _, dt0 = run_ingest(sources, still_elision=False,
+                                   window=Q_WINDOW, **kw)
+        FPS[name + " unsharded"] = Bq * T / dt0
+        (batches, _, dt), launches = count_launches(
+            lambda: run_ingest(sources, still_elision=False,
+                               window=Q_WINDOW, mesh=mesh, **kw))
+        log_mesh_run(card, name, "on a dp=2, gop=2 mesh", len(batches),
+                     Bq * T, dt, name + " unsharded", launches)
+        require_launches(launches, want, f"run ({name})")
+        if "rans_decode_aligned" in want:
+            require_staged(launches, f"run ({name})")
+        fr = on_timeline(batches, "frames_u32")
+        require(torch.equal(fr, on_timeline(plain, "frames_u32")),
+                f"run ({name}) frames == the unsharded run's")
+        model = on_timeline(batches, "model_input")
+        require(torch.equal(model.view(torch.int16),
+                            on_timeline(plain, "model_input")
+                            .view(torch.int16)),
+                f"run ({name}) model tensors == the unsharded run's")
+        for b in range(Bq):
+            want_fr = src[b].to(DEV)
+            require(torch.equal(fr[b] & 0xFFFFFF, want_fr & 0xFFFFFF)
+                    if "lane" in name else torch.equal(fr[b], want_fr),
+                    f"run ({name}) stream {b} frames == source frames")
+            check_model(model[b], models[b], f"run ({name}) stream {b}")
+        log(f"run ({name}): frames and model tensors bit-exact, equal to "
+            f"the unsharded run's")
+        res[name] = launches
+        del plain, batches, fr, model
+    return res
+
+
+def phase_mesh_msv1(card: str, avis, unsharded) -> dict:
+    """Run (r): run (m)'s B=8 CIF streams on a dp=4 mesh of cuda:0 slots;
+    every window equals run (m)'s (frames, model tensors, significance),
+    one msv1_paint launch a window a slot → its launches."""
+    (batches, _, dt), launches = count_launches(
+        lambda: run_ingest(avis, still_elision=False, mesh=card_mesh(4, 1)))
+    log_mesh_run(card, "r", "MSV1 16-bit CIF on a dp=4 mesh", len(batches),
+                 MSV1_B * T, dt, "m", launches)
+    log(f"run (r) msv1_paint instances {launches['msv1_instances']}")
+    require_launches(launches, {"msv1_paint": 4 * len(batches),
+                                "ds2_pack": len(batches)}, "run (r)")
+    require(len(batches) == len(unsharded), "run (r) windows == run (m)'s")
+    for w, u in zip(batches, unsharded):
+        require(w["start_frame"] == u["start_frame"]
+                and torch.equal(w["frames_u32"], u["frames_u32"])
+                and torch.equal(w["significant"], u["significant"])
+                and torch.equal(w["model_input"].view(torch.int16),
+                                u["model_input"].view(torch.int16)),
+                f"run (r) window @{w['start_frame']} == run (m)'s")
+    log("run (r): every window bit-exact, equal to run (m)'s")
+    return launches
+
+
+def phase_nccl(mesh_sig: torch.Tensor) -> None:
+    """(s): a one-process NCCL group (init_multihost over localhost), the
+    mesh's psum of run (o)'s significant-frame count through all_reduce,
+    then the group destroyed."""
+    import socket
+
+    from jsplayer_tpu_torch.pipeline.mesh import init_multihost
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    init_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        total = card_mesh(2, 1).psum([mesh_sig])
+        torch.cuda.synchronize()
+        require(torch.distributed.get_backend() == "nccl"
+                and total.device.type == "cuda"
+                and int(total) == int(mesh_sig),
+                f"(s) NCCL psum {int(total)} == {int(mesh_sig)}")
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"(s) one-process NCCL: psum of run (o)'s significant frames = "
+        f"{int(total)}; process group destroyed (no traffic between cards "
+        f"measured: one card)")
+
+
+def phase_dryrun(card: str) -> dict:
+    """jsplayer_tpu_torch.dryrun_multichip(4, "cuda"): every leg on four
+    slots of the card → its launches."""
+    from jsplayer_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    _, launches = count_launches(lambda: dryrun_multichip(4, "cuda"))
+    log(f"dryrun_multichip(4, 'cuda'): every leg bit-exact in "
+        f"{time.perf_counter() - t0:.3f} s; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in MESH_KERNELS
+                    + ("sp_compose_general",)) + f" ({card})")
+    for k in ("kmv_compose", "bc_compose", "lane_compose",
+              "sp_compose_general", "rans_decode_aligned"):
+        require(launches[k] > 0, f"the dry run launched {k} ({launches})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The kmv_sparse transport: kmv_sparse_compose, runs (k) and (l)
 
 def phase_sparse_kernel(card: str) -> dict:
@@ -1364,6 +1624,9 @@ def phase_msv1_runs(card: str) -> dict:
                 f"run ({name}) msv1_paint ran its staged instance "
                 f"({launches['msv1_instances']})")
         check_dense(batches, srcs, models, f"run ({name})")
+        if name == "m":
+            FPS["m"] = Bm * T / dt
+            total["run_r"] = phase_mesh_msv1(card, s["avis"], batches)
         prev = torch.zeros((Bm, Y_, X_), dtype=torch.int32, device=DEV)
         for w in batches:
             frames, sig = msv1_twin_window(s, w, bits, X_, Y_, prev)
@@ -1487,7 +1750,7 @@ PROBE_DEPTH = {"ds2_fields": 64, "bitcast_fold": 64, "passthru": 64,
                "pack_h": 64, "sum4": 64, "hpair_i32": 4, "hpair_lowbyte": 4,
                "wpair_i32": 4, "block_transpose": 4}
 #: the ds_probe modes with a 16-byte and a 4-byte instance (rows_kernel)
-ROW_MODES = ("passthru", "hpair_i32")
+ROW_MODES = ("passthru", "hpair_i32", "wpair_i32")
 
 
 def rand_dev(shape, seed):
@@ -1591,8 +1854,11 @@ def phase_library_yardstick(card: str, mode: str) -> dict:
     strided-slice copy, its add of two strided views) at the script's depth
     and 1024 rows (Y a multiple of BH, as the call needs), both bit-exact
     against the twin → {"library_ms", "library_graph_ms", "library_shape",
-    "y1024": the kernel's numbers there}."""
-    from jsplayer_tpu_torch.experiments.probe_step import CALLS
+    "y1024": the kernel's numbers there}; the pair modes add each one's
+    time with a cold L2 ("library_cold_ms", y1024's "cold_ms":
+    experiments/common.cold_ms)."""
+    from jsplayer_tpu_torch.experiments.common import cold_ms
+    from jsplayer_tpu_torch.experiments.probe_step import CALLS, PAIR_MODES
     from jsplayer_tpu_torch.experiments.probes import (probe_read_words,
                                                        probe_ref)
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
@@ -1626,9 +1892,19 @@ def phase_library_yardstick(card: str, mode: str) -> dict:
         f"{100 * res['bound_ms'] / lib_graph:.1f}% of bound (graph); "
         f"ds_probe {mode} {res['graph_ms']:.4f} "
         f"({100 * res['bound_ms'] / res['graph_ms']:.1f}%) ({card})")
+    out_res = dict(library_ms=lib_ms, library_graph_ms=lib_graph,
+                   library_shape=list(shape), y1024=res)
+    if mode in PAIR_MODES:
+        res["cold_ms"] = cold_ms(call)
+        out_res["library_cold_ms"] = cold_ms(lambda: library(f))
+        log(f"{mode} {list(shape)} with a cold L2: ds_probe "
+            f"{res['cold_ms']:.4f} ms "
+            f"({100 * res['bound_ms'] / res['cold_ms']:.1f}% of bound), "
+            f"{library.__name__} {out_res['library_cold_ms']:.4f} ms "
+            f"({100 * res['bound_ms'] / out_res['library_cold_ms']:.1f}%) "
+            f"({card})")
     del f, want, got, lib, out
-    return dict(library_ms=lib_ms, library_graph_ms=lib_graph,
-                library_shape=list(shape), y1024=res)
+    return out_res
 
 
 def load_bench_mix():
@@ -1808,10 +2084,15 @@ def main() -> int:
         card, chunks, src)
     sparse = phase_sparse_runs(card, avis, src, models)
     launches["kmv_sparse_compose"] = sparse["kmv_sparse_compose"]
+    mesh_runs, mesh_sig = phase_mesh_dp(card, avis, src, models)
+    mesh_runs.update(phase_mesh_gop(card, frames, src, models))
+    phase_nccl(mesh_sig)
     del avis, frames, chunks, src, models
     kernels["msv1_paint"] = phase_msv1_kernel(card)
     msv1 = phase_msv1_runs(card)
     launches["msv1_paint"] = msv1["msv1_paint"]
+    mesh_runs["r"] = msv1["run_r"]
+    mesh_runs["dryrun"] = phase_dryrun(card)
     phase_validate(card)
     rans, rt = phase_rans_kernels(card)
     kernels.update(rans)
@@ -1868,6 +2149,9 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_all:.3f} s")
     for r in kernels.values():  # the share of the bound, by the graph time
         r.setdefault("share", r["bound_ms"] / r.get("graph_ms", r["ms"]))
+    for name in MESH_KERNELS:  # each kernel's launches in the mesh runs
+        kernels[name]["mesh_launches"] = {
+            run: got[name] for run, got in mesh_runs.items() if got[name]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": routes[name][0],
          "replaces": routes[name][1], "launches": launches[name],

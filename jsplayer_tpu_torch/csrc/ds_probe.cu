@@ -20,11 +20,12 @@
 // and does a few integer ops.  On the TPU these probes tested which layout
 // ops Mosaic could lower (strided slices, minor-dim reshapes, lane gathers,
 // u16 bitcasts, transposes); on Hopper any address can be read, so every
-// mode but passthru, hpair_i32 and block_transpose is one thread an output
-// word, reading its inputs straight from device memory (neighbouring
-// threads on neighbouring columns, so a warp's loads coalesce), with 4-byte
-// accesses.  passthru (a strided row copy) and hpair_i32 (a sum of two
-// whole rows) move whole rows (see rows_kernel): 16-byte units, several
+// mode but passthru, hpair_i32, wpair_i32 and block_transpose is one thread
+// an output word, reading its inputs straight from device memory
+// (neighbouring threads on neighbouring columns, so a warp's loads
+// coalesce), with 4-byte accesses.  passthru (a strided row copy),
+// hpair_i32 (a sum of two whole rows) and wpair_i32 (the column-pair sums
+// of a row) move whole rows (see rows_kernel): 16-byte units, several
 // loads in flight a thread, a thread block a run of rows.
 // block_transpose moves 32 x 128-word tiles through shared memory with
 // 16-byte loads along x and 16-byte stores along r, transposing 4 x 4
@@ -86,10 +87,8 @@ __global__ void ds_probe_kernel(const uint32_t* __restrict__ in,
     } else if (M == kSum4) {
       v = fields(f.at(4 * i, j)) + fields(f.at(4 * i + 1, j)) +
           fields(f.at(4 * i + 2, j)) + fields(f.at(4 * i + 3, j));
-    } else if (M == kHpairLowbyte) {
+    } else {  // kHpairLowbyte
       v = (f.at(2 * i, j) & 0xFFu) + (f.at(2 * i + 1, j) & 0xFFu);
-    } else {  // kWpairI32
-      v = f.at(i, 2 * j) + f.at(i, 2 * j + 1);
     }
     out[c * out_cs + (long long)i * Wo + j] = v;
   }
@@ -178,11 +177,17 @@ __global__ void __launch_bounds__(kTpThreads) block_transpose_kernel(
   }
 }
 
-// The row modes: each output row is one input row or the sum of two.
+// The row modes: each output row is one input row, the sum of two, or the
+// column-pair sums of one.
 //   passthru:  out[c, blk*BH/2 + r, :] = frame[c, blk*BH + r, 0:Wo] for r <
 //              BH/2, Wo = X/2: a strided copy of rows;
 //   hpair_i32: out[c, o, :] = frame[c, 2o, :] + frame[c, 2o + 1, :] (Wo = X,
 //              wrapping int32 sums);
+//   wpair_i32: out[c, o, j] = frame[c, o, 2j] + frame[c, o, 2j + 1] (Wo =
+//              X/2, the last column dropped when X is odd; wrapping int32
+//              sums): output unit u of a row reads input units 2u and
+//              2u + 1, so a 16-byte output unit holds the four pair sums
+//              of two 16-byte input units;
 // a row past Y reads 0.  The one-thread-a-word template kept one 4-byte
 // load in flight a thread (8 KB an SM), too little to cover device
 // memory's latency, and divided per word.  Here a thread block of
@@ -191,8 +196,8 @@ __global__ void __launch_bounds__(kTpThreads) block_transpose_kernel(
 // arithmetic is done once a run; its blockDim.x threads walk a row in
 // units of V (16 bytes on the kVec instance, 4 bytes on the other),
 // kPtUnroll units a thread with every load in flight before the first
-// store (64 bytes a thread for passthru, 128 for hpair_i32; 128 KB an SM
-// for passthru at 8 blocks).  The grid has a block for every run (frame,
+// store (64 bytes a thread for passthru, 128 for hpair_i32 and
+// wpair_i32; 128 KB an SM for passthru at 8 blocks).  The grid has a block for every run (frame,
 // group, run), in order: measured against one wave of resident blocks
 // looping over the runs, it took 2-4% less time, since the card gives each
 // freed slot the next run.  Output rows whose inputs all lie past Y are
@@ -206,10 +211,17 @@ __device__ __forceinline__ uint4 add_units(uint4 a, uint4 b) {
 __device__ __forceinline__ uint32_t add_units(uint32_t a, uint32_t b) {
   return a + b;  // u32 add = wrapping i32 add
 }
+// wpair_i32: the column-pair sums of input units a, b (consecutive in a row)
+__device__ __forceinline__ uint4 pair_units(uint4 a, uint4 b) {
+  return make_uint4(a.x + a.y, a.z + a.w, b.x + b.y, b.z + b.w);
+}
+__device__ __forceinline__ uint32_t pair_units(uint32_t a, uint32_t b) {
+  return a + b;
+}
 
 // passthru asks for 8 blocks an SM (32 registers a thread; uncapped, ptxas
-// gave it 40, so 6 fit; the two measured within 0.3%).  hpair_i32 holds
-// twice the units in flight and keeps its registers.
+// gave it 40, so 6 fit; the two measured within 0.3%).  hpair_i32 and
+// wpair_i32 hold twice the units in flight and keep their registers.
 template <int M, typename V>
 __global__ void __launch_bounds__(kPtThreads, M == kPassthru ? 8 : 1)
     rows_kernel(
@@ -217,7 +229,7 @@ __global__ void __launch_bounds__(kPtThreads, M == kPassthru ? 8 : 1)
     uint32_t* __restrict__ out, long long out_cs, int Y, int X, int BH,
     int Wo, int groups, int grows, int runs) {
   constexpr int kWords = sizeof(V) / 4;
-  const int W = Wo / kWords;  // units a row; Wo % kWords == 0
+  const int W = Wo / kWords;  // output units a row; Wo % kWords == 0
   const int tx = threadIdx.x, TX = blockDim.x;
   const int per_frame = groups * runs;
   const int c = blockIdx.x / per_frame;
@@ -227,7 +239,7 @@ __global__ void __launch_bounds__(kPtThreads, M == kPassthru ? 8 : 1)
   if (r >= grows) return;
   const int o = g * grows + r;
   // the input row (the first of hpair_i32's two)
-  const int y = M == kPassthru ? g * BH + r : 2 * o;
+  const int y = M == kPassthru ? g * BH + r : M == kHpairI32 ? 2 * o : o;
   V* dst = (V*)(out + c * out_cs + (long long)o * Wo);
   if (y >= Y) {
     for (int u = tx; u < W; u += TX) __stcs(dst + u, V());
@@ -239,22 +251,33 @@ __global__ void __launch_bounds__(kPtThreads, M == kPassthru ? 8 : 1)
     V v[kPtUnroll], w[kPtUnroll];
 #pragma unroll
     for (int k = 0; k < kPtUnroll; ++k) {
-      if (u0 + k * TX < W) {
-        v[k] = __ldcs(src + u0 + k * TX);
-        if (pair) w[k] = __ldcs(src + W + u0 + k * TX);
+      const int u = u0 + k * TX;
+      if (u < W) {
+        if (M == kWpairI32) {
+          v[k] = __ldcs(src + 2 * u);
+          w[k] = __ldcs(src + 2 * u + 1);
+        } else {
+          v[k] = __ldcs(src + u);
+          if (pair) w[k] = __ldcs(src + W + u);
+        }
       }
     }
 #pragma unroll
-    for (int k = 0; k < kPtUnroll; ++k)
-      if (u0 + k * TX < W)
-        __stcs(dst + u0 + k * TX, pair ? add_units(v[k], w[k]) : v[k]);
+    for (int k = 0; k < kPtUnroll; ++k) {
+      const int u = u0 + k * TX;
+      if (u < W)
+        __stcs(dst + u, M == kWpairI32 ? pair_units(v[k], w[k])
+                        : pair        ? add_units(v[k], w[k])
+                                      : v[k]);
+    }
   }
 }
 
 // Whether a row mode takes its 16-byte instance: whole 16-byte units on
 // both sides (X % 4 == 0 for the input rows, Wo % 4 == 0 for the output
-// rows and the first Wo words of an input row), 16-byte aligned bases and
-// frame strides.  block_transpose makes the same test with X for Wo.
+// rows and the first Wo words of an input row; for wpair_i32, Wo = X/2, so
+// X % 8 == 0), 16-byte aligned bases and frame strides.  block_transpose
+// makes the same test with X for Wo.
 bool rows_vec(const void* in, long long in_cs, const void* out,
               long long out_cs, int X, int Wo) {
   return X % 4 == 0 && Wo % 4 == 0 && (uintptr_t)in % 16 == 0 &&
@@ -307,7 +330,7 @@ void launch(const dim3& grid, const dim3& block, cudaStream_t s,
 extern "C" int jsp_ds_probe_instance(int mode, const void* in,
                                      long long in_cs, const void* out,
                                      long long out_cs, int X, int Wo) {
-  if (mode != kPassthru && mode != kHpairI32) return -1;
+  if (mode != kPassthru && mode != kHpairI32 && mode != kWpairI32) return -1;
   return rows_vec(in, in_cs, out, out_cs, X, Wo) ? 1 : 0;
 }
 
@@ -321,13 +344,19 @@ extern "C" int jsp_ds_probe(int mode, const void* in, long long in_cs,
   const uint32_t* src = (const uint32_t*)in;
   uint32_t* dst = (uint32_t*)out;
   const unsigned cz = C < 65535 ? C : 65535;
-  if (mode == kPassthru || mode == kHpairI32) {
+  if (mode == kPassthru || mode == kHpairI32 || mode == kWpairI32) {
     if (BH % 4) return (int)cudaErrorInvalidValue;
-    return mode == kPassthru
-               ? launch_rows<kPassthru>(s, src, in_cs, dst, out_cs, C, Y, X,
-                                        BH, Ho, Wo)
-               : launch_rows<kHpairI32>(s, src, in_cs, dst, out_cs, C, Y, X,
-                                        BH, Ho, Wo);
+    switch (mode) {
+      case kPassthru:
+        return launch_rows<kPassthru>(s, src, in_cs, dst, out_cs, C, Y, X,
+                                      BH, Ho, Wo);
+      case kHpairI32:
+        return launch_rows<kHpairI32>(s, src, in_cs, dst, out_cs, C, Y, X,
+                                      BH, Ho, Wo);
+      default:
+        return launch_rows<kWpairI32>(s, src, in_cs, dst, out_cs, C, Y, X,
+                                      BH, Ho, Wo);
+    }
   }
   if (mode == kBlockTranspose) {
     if (BH % 4) return (int)cudaErrorInvalidValue;
@@ -354,7 +383,6 @@ extern "C" int jsp_ds_probe(int mode, const void* in, long long in_cs,
     JSP_MODE(kPackH)
     JSP_MODE(kSum4)
     JSP_MODE(kHpairLowbyte)
-    JSP_MODE(kWpairI32)
 #undef JSP_MODE
     default:
       return (int)cudaErrorInvalidValue;

@@ -71,6 +71,37 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+#: bytes that flush the L2 between the calls cold_ms times: five times
+#: the 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+
+
+def cold_ms(fn, iters: int = 20, read: bool = False) -> float:
+    """ms per call of fn's device work with a cold L2: fn captured into a
+    CUDA graph of one call; before each of `iters` replays a 256 MB buffer
+    is written (which evicts the call's inputs and leaves the L2 holding
+    the buffer's dirty lines) or, with `read`, summed (clean lines), and
+    CUDA events time only the replay.  The flush keeps the card busy for
+    longer than the replay takes to launch, so no launch gap enters the
+    time."""
+    graph = capture(fn, 1)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=torch.cuda.current_device())
+    flush.fill_(1)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for i, (start, end) in enumerate(events):
+        if read:
+            flush.sum()
+        else:
+            flush.fill_(i)
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
 def capture(fn, iters: int) -> torch.cuda.CUDAGraph:
     """`iters` calls of fn, after warm-up calls on a side stream, captured
     into one CUDA graph."""

@@ -12,8 +12,13 @@ with BH = 128 ([4, 1080, 1920]; passthru [64, 1080, 1920]: a partial last
 block whose rows past Y read 0), then with 1024 rows, a multiple of BH,
 where one PyTorch call computes the same function (torch_<op>, below).
 `exact` holds each call against the plain twin (experiments/probes.py),
-bit for bit; passthru's and hpair_i32's entries add the instance that ran
-(null in a checkout whose ds_probe has none).  The bytes are each needed
+bit for bit; the row modes' entries (passthru, hpair_i32, wpair_i32) add
+the instance that ran (null in a checkout whose ds_probe has none).  The
+pair modes and their torch adds at 1024 rows add `cold_ms`, a call timed
+alone after a 256 MB write has flushed the L2 (common.cold_ms), and
+`cold_read_ms`, the same after a 256 MB read: their 47 MB working set is
+about the L2's size, so `graph_ms` reads part of it from the L2 of the
+replay before.  The bytes are each needed
 input word read once and each output word written once
 (probes.probe_read_words).  The script calls only ds_probe's public
 signature, so copied with experiments/common.py into an earlier checkout
@@ -27,8 +32,8 @@ import json
 
 import torch
 
-from .common import (HBM_BYTES_PER_MS, card, graph_ms, io_bytes, rand_frames,
-                     time_ms)
+from .common import (HBM_BYTES_PER_MS, card, cold_ms, graph_ms, io_bytes,
+                     rand_frames, time_ms)
 
 C, Y, X, BH = 4, 1080, 1920, 128
 
@@ -73,12 +78,22 @@ CALLS = {
 }
 
 
-def time_call(fn, want, nbytes) -> dict:
+#: the modes whose 1024-row readings add a cold-L2 time
+PAIR_MODES = ("hpair_i32", "wpair_i32")
+#: the modes with a 16-byte and a 4-byte instance
+ROW_MODES = ("passthru", "hpair_i32", "wpair_i32")
+
+
+def time_call(fn, want, nbytes, cold: bool = False) -> dict:
     """{"ms", "graph_ms", "bytes", "bound_ms", "exact"} of fn(), which
-    must return `want`."""
-    return dict(exact=torch.equal(fn(), want), ms=time_ms(fn),
-                graph_ms=graph_ms(fn), bytes=nbytes,
-                bound_ms=nbytes / HBM_BYTES_PER_MS)
+    must return `want`; with cold, also "cold_ms"."""
+    res = dict(exact=torch.equal(fn(), want), ms=time_ms(fn),
+               graph_ms=graph_ms(fn), bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_MS)
+    if cold:
+        res["cold_ms"] = cold_ms(fn)
+        res["cold_read_ms"] = cold_ms(fn, read=True)
+    return res
 
 
 def time_mode(mode: str, device) -> dict:
@@ -94,13 +109,14 @@ def time_mode(mode: str, device) -> dict:
         want = probe_ref(f, mode)
         out = torch.empty_like(want)
         nbytes = 4 * probe_read_words(mode, *f.shape) + io_bytes(want)
+        cold = mode in PAIR_MODES and rows % BH == 0
         res[name] = time_call(lambda: ds_probe(f, mode, BH, out=out), want,
-                              nbytes)
-        if mode in ("passthru", "hpair_i32"):  # the modes with instances
+                              nbytes, cold)
+        if mode in ROW_MODES:
             res[name]["instance"] = getattr(ds_probe, "last_instance", None)
         if rows % BH == 0:
             res[f"{lib_name}_y1024"] = time_call(lambda: library(f), want,
-                                                 nbytes)
+                                                 nbytes, cold)
         del f, want, out
     return res
 

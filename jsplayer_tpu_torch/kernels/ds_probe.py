@@ -6,9 +6,9 @@ the Pallas kernels of scripts/exp_pallas_ds.py, exp_pallas_ds2.py and
 exp_pallas_bisect.py; their plain twins, output shapes and the scripts'
 names for them are in experiments/probes.py.  Tensors on the CPU take the
 twin; tensors on the card launch the kernel or raise.  The row modes
-(passthru, hpair_i32) take a 16-byte instance where the views allow it and
-a 4-byte one elsewhere: ``ds_probe.by_instance`` / ``.last_instance`` say
-which ran.
+(passthru, hpair_i32, wpair_i32) take a 16-byte instance where the views
+allow it and a 4-byte one elsewhere: ``ds_probe.by_instance`` /
+``.last_instance`` say which ran.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def ds_probe(frames: torch.Tensor, mode: str, BH: int = 128,
     return out
 
 
-#: the instances of a mode that has two (passthru, hpair_i32), by
+#: the instances of a mode that has two (the row modes), by
 #: jsp_ds_probe_instance's answer: 4-byte units, or 16-byte units
 PROBE_INSTANCES = ("scalar", "vec")
 ds_probe.launches = 0  # kernel launches (the plain path does not count)

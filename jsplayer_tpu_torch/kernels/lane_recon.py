@@ -213,3 +213,21 @@ def decode_batch_raw(init, payload, btype, rect, mvk, row_table, row_idx,
     decode_batch_lane."""
     rows = rows_batch(units_from_raw(payload), row_table, init.shape[-1])
     return scan_batch(init, rows, btype, rect, mvk, row_idx, changed)
+
+
+def make_lane_decode_step(mesh, U: int, axes=("dp",), raw: bool = False):
+    """The sharded lane decode over the mesh (pipeline/mesh.run_rows).
+    `axes` names the mesh axes the leading batch axis shards over:
+    ("dp",) = independent streams only; ("dp", "gop") additionally spreads
+    restart windows (carry-independent, lane_format.LaneWindow.restart)
+    of the same stream over the gop axis.  Entries are stream-major: index
+    b * G + g for a group of G windows.  The step takes
+    decode_batch_raw's inputs (raw) or decode_batch_lane's without U, each
+    with the leading entry axis, and runs that decode on every slot's
+    entries: one rans_decode_aligned launch (rans) and one lane_compose
+    launch a scan step a slot.  No slot reads another's data."""
+    from ..pipeline.mesh import run_rows
+
+    decode = decode_batch_raw if raw else (
+        lambda *args: decode_batch_lane(*args, U))
+    return lambda *arrays: run_rows(mesh, decode, *arrays, axes=axes)

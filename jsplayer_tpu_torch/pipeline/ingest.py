@@ -42,10 +42,17 @@ The window dicts have the reference's keys, shapes and meaning.  u32
 planes (``frames_u32``) are int32 tensors holding the u32 bits (see
 device.py); ``outmap`` stays a numpy array as in the reference.
 
-A mesh (the reference's multi-device sharding) raises
-NotImplementedError naming its ROADMAP.md queue item.  The oracle branch
-of kmv_sparse repairs reference host fault 3 (ROADMAP.md §3): a stream
-quarantined mid-window keeps the frames it decoded before the failure.
+A mesh (pipeline/mesh.Mesh, the reference's multi-device sharding)
+shards the streams over its dp axis on the kmv, bc, lane and MSV1 paths
+(the sharded steps of pipeline/batch.py and
+kernels/lane_recon.make_lane_decode_step, the ported kernels on every
+slot); with a gop axis larger than 1, G keyframe-led windows of each
+stream decode in one [B, G, T] dispatch (kmv and bc with the native host
+stage, and the lane path's restart windows).  As in the reference,
+kmv_sparse, general and pallas decode unsharded under a mesh.  The oracle
+branch of kmv_sparse repairs reference host fault 3 (ROADMAP.md §3): a
+stream quarantined mid-window keeps the frames it decoded before the
+failure.
 
 StreamReader, _StreamingFrames, _trim_window, _oracle_decode_step, the
 host-buffer pool and _pow2ceil are copies of the reference's: its module
@@ -146,8 +153,8 @@ def _oracle_decode_step(dec, src: bytes, isk: bool, X: int, Y: int):
 @dataclass
 class IngestConfig:
     """The reference's IngestConfig (same fields, same defaults) plus
-    `device`.  sp_device_path must be one of PORTED_SP_PATHS and mesh None
-    (checked by VideoIngestPipeline)."""
+    `device`.  sp_device_path must be one of PORTED_SP_PATHS, and mesh None
+    or a pipeline/mesh.Mesh (checked by VideoIngestPipeline)."""
     window: int = 16  # frames per emitted window (device scan length)
     emit_model_input: bool = True
     # False → kmv windows emit ONLY model tensors (fused into the decode
@@ -173,6 +180,10 @@ class IngestConfig:
     # True: unchanged frames never enter the device scan; the dict gains
     # "outmap" (see the reference's field comment for the layouts)
     still_elision: bool = False
+    # Multi-device: a pipeline/mesh.Mesh shards the stream batch over its
+    # dp axis (B divisible by the dp size) and, with a gop axis > 1,
+    # groups keyframe-led windows over it; the pipeline's device is then
+    # the first local slot's.  None = one device
     mesh: object = None
     # Long-stream mode: demux windows on demand and evict consumed bytes
     streaming: bool = False
@@ -325,9 +336,17 @@ class VideoIngestPipeline:
                 f"unknown sp_device_path={self.cfg.sp_device_path!r}; one "
                 f"of {PORTED_SP_PATHS}")
         if self.cfg.mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding is not ported yet (ROADMAP.md queue 1 "
-                "item 13)")
+            from .mesh import Mesh
+
+            if not isinstance(self.cfg.mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a jsplayer_tpu_torch.pipeline.mesh.Mesh "
+                    f"(make_mesh), got {type(self.cfg.mesh).__name__}")
+            if self.cfg.mesh.device.type != self.device.type:
+                raise ValueError(
+                    f"device {self.cfg.device!r} does not match the mesh's "
+                    f"{self.cfg.mesh.device}")
+            self.device = self.cfg.mesh.device
         self._model_dtype = getattr(torch, self.cfg.model_dtype)
         self._carry: Optional[torch.Tensor] = None
         if self.cfg.sp_device_path == "lane":
@@ -369,6 +388,7 @@ class VideoIngestPipeline:
             return list(range(k0, t1, self.cfg.window))
         starts = list(range(0, self.nframes, self.cfg.window))
         if (self.cfg.still_elision and not self.cfg.streaming
+                and self._gop_group == 1
                 and self.info.codec == CodecType.SCREENPRESSOR):
             # keyframe-aligned scheduling: a window that starts mid-GOP
             # falls off the CONCAT elision layout onto the padded scans, so
@@ -462,6 +482,28 @@ class VideoIngestPipeline:
                 if pending is not None:
                     yield pending
                 return
+            G = self._gop_group
+            from .. import native as _nat
+            if (G > 1 and self.info.codec == CodecType.SCREENPRESSOR
+                    and self.cfg.sp_device_path in ("kmv", "bc")
+                    and _nat.available()):
+                # gop-axis grouping: G keyframe-led windows a sharded
+                # [B, G, T] dispatch
+                starts_all = self._window_starts()
+                for i in range(0, len(starts_all), G):
+                    grp = starts_all[i: i + G]
+                    chunks = []
+                    for st in grp:
+                        chunk = []
+                        for r in self.readers:
+                            frames = r.frames[st: st + W]
+                            frames += [b""] * (W - len(frames))
+                            chunk.append(frames)
+                        chunks.append(chunk)
+                    while len(chunks) < G:  # stream-end padding (discarded)
+                        chunks.append([[b""] * W for _ in self.readers])
+                    yield from self._decode_sp_window_group(chunks, grp)
+                return
             starts = self._window_starts()
             for i, start in enumerate(starts):
                 # keyframe-aligned windows may be shorter than W: decode
@@ -493,7 +535,9 @@ class VideoIngestPipeline:
         # uploads are blocking copies (device.to_device), so no device work
         # still reads these host pages
         for attr, key in (("_spbuf", ("sp",)), ("_kmvbuf", ("kmv",)),
-                          ("_sparsebuf", ("sparse",)), ("_bcbuf", ("bc",))):
+                          ("_kmvgbuf", ("kmvg", self._gop_group)),
+                          ("_sparsebuf", ("sparse",)), ("_bcbuf", ("bc",)),
+                          ("_bcgbuf", ("bcg", self._gop_group))):
             buf = getattr(self, attr, None)
             if buf is not None:
                 _pool_release(key + self._buf_key, buf)
@@ -656,12 +700,17 @@ class VideoIngestPipeline:
 
     def _kmv_route(self, pc, mvk, changed, sig, start) -> dict:
         """Dispatch an assembled kmv window (pc [B,T,Y,X], mvk [B,T,K,2],
-        changed/sig [B,T]) to still-elided scans, fused model emission, or
-        the dense batch scan.  Shared by both host branches."""
+        changed/sig [B,T]) to the sharded mesh step, still-elided scans,
+        fused model emission, or the dense batch scan.  Shared by both host
+        branches."""
         B = pc.shape[0]
         init = self._carry_init(B)
-        if self.cfg.still_elision and B > 1:
+        if self.cfg.still_elision and (self.cfg.mesh is not None or B > 1):
             return self._kmv_elided(pc, mvk, changed, sig, init, start)
+        if self.cfg.mesh is not None:
+            frames = self._sharded_kmv_step(pc, mvk, changed)
+            self._carry = frames[:, -1]
+            return self._emit(frames, self._put(sig), start)
         if self.cfg.still_elision:  # single stream: exact compact scan
             pcc, mvkc, outmap = sp_recon.compact_changed(
                 pc[0], mvk[0], changed[0])
@@ -698,8 +747,9 @@ class VideoIngestPipeline:
             overwrites the frame (keyframe-led windows, checked on the
             paycode ptype plane), all streams' compacted frames
             concatenate into ONE sequential scan with zero padding;
-          * PADDED — otherwise, the per-stream masked scans of bucketed
-            length Cpad run as one batched scan and the [B, Cpad] result is
+          * PADDED — otherwise (and always under a mesh), the per-stream
+            masked scans of bucketed length Cpad run as one batched scan
+            (or shard over the mesh's dp axis) and the [B, Cpad] result is
             flattened with per-stream offsets."""
         B = pc.shape[0]
         vi = self.info
@@ -716,7 +766,7 @@ class VideoIngestPipeline:
                     device=self.device)
             return out
 
-        full_first = all(
+        full_first = self.cfg.mesh is None and all(
             counts[b] == 0
             or bool((((pcc[b, 0] >> 24) & 3) == 1).all())
             for b in range(B))
@@ -747,13 +797,14 @@ class VideoIngestPipeline:
                 out["model_input"] = self._model_tensors(frames)
             return out
 
-        # padded layout (mid-GOP windows): [B, Cpad] → flat
+        # padded layout (mid-GOP windows or a mesh): [B, Cpad] → flat
         outmap_flat = np.where(
             outmap >= 0,
             outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
             -1).astype(np.int32)
         out["outmap"] = outmap_flat
-        if not self.cfg.emit_frames and self.cfg.emit_model_input:
+        if (self.cfg.mesh is None and not self.cfg.emit_frames
+                and self.cfg.emit_model_input):
             # fused: the compacted masked scan emits ONLY model tensors
             carry, model = sp_recon.decode_batch_kmv_model(
                 init, self._put(pcc), self._put(mvkc), self._put(valid),
@@ -763,10 +814,13 @@ class VideoIngestPipeline:
             self._carry = carry
             out["model_input"] = model.reshape((B * cpad,) + model.shape[2:])
             return out
-        frames = sp_recon.decode_batch_kmv(
-            init, self._put(pcc), self._put(mvkc), self._put(valid))
+        if self.cfg.mesh is not None:
+            frames = self._sharded_kmv_step(pcc, mvkc, valid)
+        else:
+            frames = sp_recon.decode_batch_kmv(
+                init, self._put(pcc), self._put(mvkc), self._put(valid))
         self._carry = frames[:, -1]
-        flat = frames.reshape((B * cpad,) + frames.shape[2:])
+        flat = frames.reshape((-1,) + frames.shape[2:])
         if self.cfg.emit_frames:
             out["frames_u32"] = flat
         if self.cfg.emit_model_input:
@@ -832,13 +886,18 @@ class VideoIngestPipeline:
         return self._bc_route(plane, bcode, rloc, mvk, changed, sig, start)
 
     def _bc_route(self, plane, bcode, rloc, mvk, changed, sig, start) -> dict:
-        """Dispatch an assembled bc window to still-elided scans, fused
-        model emission, or the dense batch scan (as _kmv_route does)."""
+        """Dispatch an assembled bc window to still-elided scans, the
+        sharded mesh step, fused model emission, or the dense batch scan
+        (as _kmv_route does)."""
         B = plane.shape[0]
         init = self._carry_init(B)
         if self.cfg.still_elision:
             return self._bc_elided(plane, bcode, rloc, mvk, changed, sig,
                                    init, start)
+        if self.cfg.mesh is not None:
+            frames = self._sharded_bc_step(plane, bcode, rloc, mvk, changed)
+            self._carry = frames[:, -1]
+            return self._emit(frames, self._put(sig), start)
         dev = [self._put(a) for a in (plane, bcode, rloc, mvk, changed)]
         if not self.cfg.emit_frames and self.cfg.emit_model_input:
             carry, model = sp_recon.decode_batch_bc_model(
@@ -857,7 +916,8 @@ class VideoIngestPipeline:
         """Still-elision for the bc transport: _kmv_elided's output
         contract (flat row stack + outmap), the CONCAT layout when every
         stream's first compacted slot overwrites the whole frame (code 1,
-        rect (0, 0, 16, 16) in every block), PADDED otherwise."""
+        rect (0, 0, 16, 16) in every block) and there is no mesh, PADDED
+        otherwise."""
         B = plane.shape[0]
         vi = self.info
         (plc, bcc, rlc, mvkc), valid, outmap = sp_recon.compact_arrays_batch(
@@ -872,7 +932,7 @@ class VideoIngestPipeline:
                     (0, vi.height, vi.width), dtype=torch.int32,
                     device=self.device)
             return out
-        full_first = all(
+        full_first = self.cfg.mesh is None and all(
             counts[b] == 0
             or (bool((bcc[b, 0] == 1).all())
                 and bool((rlc[b, 0] == (0, 0, 16, 16)).all()))
@@ -905,15 +965,146 @@ class VideoIngestPipeline:
             outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
             -1).astype(np.int32)
         out["outmap"] = outmap_flat
-        frames = sp_recon.decode_batch_bc(
-            init, *(self._put(a) for a in (plc, bcc, rlc, mvkc, valid)))
+        if self.cfg.mesh is not None:
+            frames = self._sharded_bc_step(plc, bcc, rlc, mvkc, valid)
+        else:
+            frames = sp_recon.decode_batch_bc(
+                init, *(self._put(a) for a in (plc, bcc, rlc, mvkc, valid)))
         self._carry = frames[:, -1]
-        flat = frames.reshape((B * cpad,) + frames.shape[2:])
+        flat = frames.reshape((-1,) + frames.shape[2:])
         if self.cfg.emit_frames:
             out["frames_u32"] = flat
         if self.cfg.emit_model_input:
             out["model_input"] = self._model_tensors(flat)
         return out
+
+    # -- the mesh --------------------------------------------------------------
+
+    @property
+    def _gop_group(self) -> int:
+        """Windows a device dispatch = the mesh's gop-axis size.  Above 1,
+        keyframe-led windows are the sequence-parallel unit: G windows of
+        one stream decode at once on G slots."""
+        mesh = self.cfg.mesh
+        if mesh is None:
+            return 1
+        return mesh.shape.get("gop", 1)
+
+    def _sharded_step(self, attr: str, make, **cfg_kw):
+        """The pipeline's sharded step `make(mesh, cfg)`, made once and kept
+        under `attr`."""
+        if getattr(self, attr, None) is None:
+            from .batch import DecodeConfig
+
+            vi = self.info
+            setattr(self, attr, make(self.cfg.mesh, DecodeConfig(
+                height=vi.height, width=vi.width, emit_model_input=False,
+                **cfg_kw)))
+        return getattr(self, attr)
+
+    def _sharded_kmv_step(self, pc, mvk, changed):
+        """kmv windows over the mesh's dp axis: [B, T, ...] → [B, G=1, T,
+        ...] rows, each slot scanning its own streams' P-chains."""
+        from .batch import make_sp_decode_step_kmv
+
+        if self._gop_group != 1:
+            raise ValueError(
+                "gop>1 meshes route through the window-grouping path (kmv + "
+                "native host stage); this transport shards dp only")
+        step = self._sharded_step("_kmv_sharded", make_sp_decode_step_kmv)
+        init = self._carry_init(pc.shape[0])
+        return step(init[:, None], pc[:, None], mvk[:, None],
+                    changed[:, None])[:, 0]
+
+    def _sharded_bc_step(self, plane, bcode, rloc, mvk, changed):
+        """bc windows over the mesh's dp axis."""
+        from .batch import make_sp_decode_step_bc
+
+        if self._gop_group != 1:
+            raise ValueError(
+                "gop>1 grouping rides the kmv path; bc shards dp only")
+        step = self._sharded_step("_bc_sharded", make_sp_decode_step_bc)
+        init = self._carry_init(plane.shape[0])
+        return step(init[:, None], plane[:, None], bcode[:, None],
+                    rloc[:, None], mvk[:, None], changed[:, None])[:, 0]
+
+    def _decode_sp_window_group(self, chunks, starts) -> list[dict]:
+        """Decode G keyframe-led windows in ONE sharded [B, G, T] dispatch
+        over the (dp, gop) mesh.  Every window after the first must start
+        with a keyframe (or be stream-end padding): keyframes make windows
+        independent decode chains, so no slot waits on another.  → one
+        output dict per real window."""
+        from .batch import make_sp_decode_step_bc, make_sp_decode_step_kmv
+
+        vi = self.info
+        X, Y = vi.width, vi.height
+        G = self._gop_group
+        B, T = len(chunks[0]), self.cfg.window
+        K = self.cfg.kmv_k
+        decs = self._sp_decoders()
+        if self.cfg.still_elision:
+            raise ValueError(
+                "still_elision with a gop>1 mesh is not supported yet")
+        use_bc = self.cfg.sp_device_path == "bc"
+        nb = ((X + 15) // 16) * ((Y + 15) // 16)
+        if use_bc:
+            if getattr(self, "_bcgbuf", None) is None:
+                self._bcgbuf = _pool_acquire(
+                    ("bcg", G) + self._buf_key, lambda: dict(
+                        pc=np.zeros((B, G, T, Y, X), dtype=np.uint32),
+                        mvk=np.zeros((B, G, T, K, 2), dtype=np.int32),
+                        bcode=np.zeros((B, G, T, nb), dtype=np.uint8),
+                        rloc=np.zeros((B, G, T, nb, 4), dtype=np.uint8)))
+            buf = self._bcgbuf
+        else:
+            if getattr(self, "_kmvgbuf", None) is None:
+                self._kmvgbuf = _pool_acquire(
+                    ("kmvg", G) + self._buf_key, lambda: dict(
+                        pc=np.zeros((B, G, T, Y, X), dtype=np.uint32),
+                        mvk=np.zeros((B, G, T, K, 2), dtype=np.int32),
+                        dirty=np.zeros((B, G, T, nb + 1), dtype=np.int32)))
+            buf = self._kmvgbuf
+        pc, mvk = buf["pc"], buf["mvk"]
+        changed = np.zeros((B, G, T), dtype=bool)
+        sig = np.zeros((B, G, T), dtype=bool)
+        for g, chunk in enumerate(chunks):
+            for b, frames in enumerate(chunk):
+                dec = decs[b]
+                if g > 0 and frames[0] and not dec.is_key_frame(frames[0]):
+                    raise ValueError(
+                        "gop>1 mesh requires keyframe-led windows "
+                        f"(window @{starts[g]} stream {b} starts mid-GOP); "
+                        "align IngestConfig.window with the keyframe cadence")
+                for t, src in enumerate(frames):
+                    if use_bc:
+                        step = lambda: dec.decompress_bc(
+                            src, dec.is_key_frame(src), pc[b, g, t],
+                            mvk[b, g, t], buf["bcode"][b, g, t],
+                            buf["rloc"][b, g, t], K=K)
+                    else:
+                        step = lambda: dec.decompress_kmv(
+                            src, dec.is_key_frame(src), pc[b, g, t],
+                            mvk[b, g, t], K=K, dirty=buf["dirty"][b, g, t])
+                    changed[b, g, t], sig[b, g, t] = self._guard(
+                        b, step, default=(False, False))
+        gstep = (self._sharded_step("_bcg_sharded", make_sp_decode_step_bc)
+                 if use_bc else
+                 self._sharded_step("_kmvg_sharded", make_sp_decode_step_kmv))
+        # g=0 continues the previous group's carry; g>0 windows are
+        # keyframe-led, so zeros are exact (the I-frame paints every pixel)
+        rows = B if self._carry is None else self._carry.shape[0]
+        init = torch.zeros((rows, G, Y, X), dtype=torch.int32,
+                           device=self.device)
+        if self._carry is not None:
+            init[:, 0] = self._carry
+        if use_bc:
+            frames = gstep(init, pc, buf["bcode"], buf["rloc"], mvk, changed)
+        else:
+            frames = gstep(init, pc, mvk, changed)
+        n_real = len(starts)
+        self._carry = frames[:, n_real - 1, -1]
+        return [self._emit(frames[:, g], self._put(sig[:, g]), starts[g])
+                for g in range(n_real)]
 
     # -- the kmv_sparse transport ------------------------------------------------
 
@@ -1172,16 +1363,40 @@ class VideoIngestPipeline:
                     continue
                 bt[b, t], sel[b, t], col[b, t], chg[b, t] = got
         init = self._carry_init(B)
-        # as the reference: valid when the window is not the stream's first
-        valid = torch.full((B,), start > 0, dtype=torch.bool,
-                           device=self.device)
         il = self.cfg.insignificant_lines
-        frames, signif = msv1_paint.decode_batch(
-            init, valid, self._put(bt),
-            self._put(msv1_paint.sel_to_plane(sel, Y, X)), self._put(col),
-            self._put(chg), (il + 3) >> 2, il, X // 4)
+        sel = msv1_paint.sel_to_plane(sel, Y, X)  # the device's plane order
+        if self.cfg.mesh is not None:
+            frames, signif = self._sharded_msv1_window(init, start, bt, sel,
+                                                       col, chg)
+        else:
+            # as the reference: valid when the window is not the stream's
+            # first
+            valid = torch.full((B,), start > 0, dtype=torch.bool,
+                               device=self.device)
+            frames, signif = msv1_paint.decode_batch(
+                init, valid, self._put(bt), self._put(sel), self._put(col),
+                self._put(chg), (il + 3) >> 2, il, X // 4)
         self._carry = frames[:, -1]
         return self._emit(frames, signif, start)
+
+    def _sharded_msv1_window(self, init, start, bt, sel, col, chg):
+        """MSV1 windows over the mesh's dp axis (streams sharded), the
+        window carry threaded through the sharded step."""
+        from .batch import make_msv1_decode_step
+
+        if self._gop_group != 1:
+            raise ValueError(
+                "gop>1 grouping is implemented for the SP kmv path only")
+        il = self.cfg.insignificant_lines
+        step = self._sharded_step(
+            "_msv1_sharded",
+            lambda mesh, cfg: make_msv1_decode_step(mesh, cfg,
+                                                    with_carry=True),
+            insignificant_blocks=(il + 3) >> 2, insignificant_lines=il)
+        valid = np.full((bt.shape[0], 1), start > 0)
+        frames, signif = step(init[:, None], valid, bt[:, None],
+                              sel[:, None], col[:, None], chg[:, None])
+        return frames[:, 0], signif[:, 0]
 
     # -- lane containers -------------------------------------------------------
 
@@ -1276,85 +1491,105 @@ class VideoIngestPipeline:
                          int(np.searchsorted(bases, tt1, side="left")))
         return Ts, bases, wi0, wi_end
 
-    def _lane_window(self, wi: int, T: int, raw: bool) -> dict:
-        """Window wi of every stream, padded to shared buckets → host arrays:
-        btype [B, Tpad, NB], rect, mvk, row_idx [B, Tpad, Y], changed
-        [B, Tpad], sig [B, T], row_table [B, ur_pad, ncol], payload [B,
-        u_pad, 3, 128] (raw) or refills [B, steps, N, 2], states, freq
+    def _lane_group(self, wi: int, ts: list, raw: bool) -> dict:
+        """Windows wi .. wi+G-1 (G = len(ts), their true lengths) of every
+        stream, padded to shared buckets → host arrays over the B*G entries
+        (stream-major: entry b*G + g is stream b's window wi+g): btype
+        [BG, Tpad, NB], rect, mvk, row_idx [BG, Tpad, Y], changed [BG,
+        Tpad], sig [B, sum(ts)], row_table [BG, ur_pad, ncol], payload [BG,
+        u_pad, 3, 128] (raw) or refills [BG, steps, N, 2], states, freq
         (rans), init planes (rans restart windows, else None), u_pad.  Tpad,
         u_pad, ur_pad and steps are powers of two (steps at least the
         widest window's); pad frames are unchanged stills, pad rows and
-        units are never referenced, and a stream without window wi passes
+        units are never referenced, and an entry without a window passes
         its carry through."""
         from ..codecs.lane_format import plane_cols
         from ..kernels import rans_lanes as _rl
 
         c0 = self.containers[0]
-        B = len(self.containers)
+        B, G = len(self.containers), len(ts)
+        BG = B * G
         Y, X, K, N = c0.Y, c0.X, c0.K, c0.n_lanes
         ncol = plane_cols(X) // 128
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
-        wins = [c.windows[wi] if wi < len(c.windows) else None
-                for c in self.containers]
-        Tpad = _pow2ceil(T)
-        h = dict(btype=np.zeros((B, Tpad, nb), dtype=np.uint8),
-                 rect=np.zeros((B, Tpad, nb, 4), dtype=np.uint8),
-                 mvk=np.zeros((B, Tpad, K, 2), dtype=np.int32),
-                 row_idx=np.zeros((B, Tpad, Y), dtype=np.int32),
-                 changed=np.zeros((B, Tpad), dtype=bool),
-                 sig=np.zeros((B, T), dtype=bool))
-        rtabs = [None] * B
-        for b, w in enumerate(wins):
+        wins = [c.windows[wi + g] if wi + g < len(c.windows) else None
+                for c in self.containers for g in range(G)]
+        offs = np.concatenate([[0], np.cumsum(ts)]).astype(int)
+        Tpad = _pow2ceil(max(ts))
+        h = dict(btype=np.zeros((BG, Tpad, nb), dtype=np.uint8),
+                 rect=np.zeros((BG, Tpad, nb, 4), dtype=np.uint8),
+                 mvk=np.zeros((BG, Tpad, K, 2), dtype=np.int32),
+                 row_idx=np.zeros((BG, Tpad, Y), dtype=np.int32),
+                 changed=np.zeros((BG, Tpad), dtype=bool),
+                 sig=np.zeros((B, int(offs[-1])), dtype=bool))
+        rtabs = [None] * BG
+        for e, w in enumerate(wins):
             if w is None:
                 continue
-            h["btype"][b, : w.T] = w.btype
-            h["rect"][b, : w.T] = w.rect
-            h["mvk"][b, : w.T] = w.mvk
-            rtabs[b], h["row_idx"][b, : w.T] = w.row_index(Y, ncol)
-            h["changed"][b, : w.T] = w.changed
-            h["sig"][b, : w.T] = w.signif
+            b, g = divmod(e, G)
+            h["btype"][e, : w.T] = w.btype
+            h["rect"][e, : w.T] = w.rect
+            h["mvk"][e, : w.T] = w.mvk
+            rtabs[e], h["row_idx"][e, : w.T] = w.row_index(Y, ncol)
+            h["changed"][e, : w.T] = w.changed
+            h["sig"][b, offs[g]: offs[g] + w.T] = w.signif
         ur_pad = _pow2ceil(max((rt.shape[0] for rt in rtabs
                                 if rt is not None), default=1))
-        h["row_table"] = np.zeros((B, ur_pad, ncol), dtype=np.int32)
-        for b, rt in enumerate(rtabs):
+        h["row_table"] = np.zeros((BG, ur_pad, ncol), dtype=np.int32)
+        for e, rt in enumerate(rtabs):
             if rt is not None:
-                h["row_table"][b, : rt.shape[0]] = rt
+                h["row_table"][e, : rt.shape[0]] = rt
         h["u_pad"] = u_pad = _pow2ceil(max(
             w.n_units if w is not None else 0 for w in wins))
         if raw:
-            h["payload"] = np.zeros((B, u_pad, 3, 128), dtype=np.uint8)
-            for b, w in enumerate(wins):
+            h["payload"] = np.zeros((BG, u_pad, 3, 128), dtype=np.uint8)
+            for e, w in enumerate(wins):
                 if w is not None and w.n_units:
-                    h["payload"][b, : w.n_units] = w.payload
+                    h["payload"][e, : w.n_units] = w.payload
         else:
             need_steps = -(-3 * u_pad * 128 // N)
             steps = max(_pow2ceil(need_steps),
                         max((w.refills.shape[0] for w in wins
                              if w is not None), default=1))
-            h["refills"] = np.zeros((B, steps, N, 2), dtype=np.uint8)
-            h["states"] = np.zeros((B, N), dtype=np.uint32)
+            h["refills"] = np.zeros((BG, steps, N, 2), dtype=np.uint8)
+            h["states"] = np.zeros((BG, N), dtype=np.uint32)
             # a valid table for absent rows: the kernel needs one
-            h["freq"] = np.ones((B, 256), dtype=np.int32)
+            h["freq"] = np.ones((BG, 256), dtype=np.int32)
             h["freq"][:, 0] += _rl.PROB_SCALE - 256
-            for b, w in enumerate(wins):
+            for e, w in enumerate(wins):
                 if w is None:
                     continue
-                h["refills"][b, : w.refills.shape[0]] = w.refills
-                h["states"][b] = w.states
-                h["freq"][b] = w.freq
+                h["refills"][e, : w.refills.shape[0]] = w.refills
+                h["states"][e] = w.states
+                h["freq"][e] = w.freq
         h["init"] = None
         if any(w is not None and w.init_plane is not None for w in wins):
             h["init"] = [None if w is None else w.init_plane for w in wins]
         return h
 
+    def _local_rows(self, a: np.ndarray, n: int, G: int = 1) -> np.ndarray:
+        """A global host array over n streams (x G entries each) → the
+        rows of this process's streams (all of them with one process)."""
+        if self.cfg.mesh is None:
+            return a
+        rows = self.cfg.mesh.local_rows(n)
+        return a[rows.start * G: rows.stop * G]
+
     def _iter_lane(self) -> Iterator[dict]:
-        """Device-entropy ingest: per window, pad streams to shared buckets
-        (_lane_window) and run the lane decode of all streams on the device
-        (kernels/lane_recon): the rows, then one lane_compose launch a scan
-        step for all B.  The host's only per-frame work is array slicing;
-        the carry stays on the device.  The reference's gop-axis grouping
-        needs a mesh (ROADMAP.md item 13), so every window is a group of
-        one."""
+        """Device-entropy ingest: per window group, pad streams to shared
+        buckets (_lane_group) and run the lane decode of every entry on the
+        device (kernels/lane_recon): the rows, then one lane_compose launch
+        a scan step for all entries (on each slot of the mesh when there is
+        one).  The host's only per-frame work is array slicing; the carry
+        stays on the device.
+
+        GOP axis: when the mesh has a gop axis (>1), up to `gop`
+        CONSECUTIVE windows join one dispatch — valid because every
+        non-leading window in a group is a restart (frame 0 fully paints
+        the plane, so its decode is carry-independent).  Entries are
+        stream-major, so the group emits as ONE dict covering its frames:
+        the same consumer contract (start_frame + flat outmap), a bigger
+        window."""
         from ..kernels import lane_recon
 
         c0 = self.containers[0]
@@ -1365,20 +1600,38 @@ class VideoIngestPipeline:
         if raw and not all(w.raw_mode for w in windows):
             raise ValueError("lane batch mixes raw and rans payload windows")
         Ts, bases, wi, wi_end = self._lane_window_starts()
+        mesh = self.cfg.mesh
+        gop_size = self._gop_group
+
+        def all_restart(wj):
+            return all(c.windows[wj].restart for c in self.containers
+                       if wj < len(c.windows))
+
         pending = None
         while wi < wi_end:
-            T = Ts[wi]
-            h = self._lane_window(wi, T, raw)
+            # greedy group: extend while the next window is carry-free
+            G = 1
+            while (G < gop_size and wi + G < wi_end
+                   and all_restart(wi + G)):
+                G += 1
+            ts = Ts[wi: wi + G]
+            total_real = sum(ts)
+            h = self._lane_group(wi, ts, raw)
+            # every entry starts from its stream's carry (restart entries
+            # ignore it; absent entries pass it through)
             init = self._carry_init(B)
+            if G > 1:
+                init = init.repeat_interleave(G, dim=0)
             # rans mode: window-leading keyframes ride as raw init planes
             # (the scan's frame 0 is an all-copy passthrough): those
-            # streams start from their plane, on the device
+            # entries start from their plane, on the device
             if h["init"] is not None:
                 mask = np.array([p is not None for p in h["init"]])
                 planes = np.stack([np.zeros((Y, X), np.uint32) if p is None
                                    else p for p in h["init"]])
-                init = torch.where(self._put(mask)[:, None, None],
-                                   self._put(planes), init)
+                init = torch.where(
+                    self._put(self._local_rows(mask, B, G))[:, None, None],
+                    self._put(self._local_rows(planes, B, G)), init)
             btype, rect, mvk, row_idx = (h[k] for k in (
                 "btype", "rect", "mvk", "row_idx"))
             changed = h["changed"]
@@ -1391,10 +1644,16 @@ class VideoIngestPipeline:
                     sp_recon.compact_arrays_batch(
                         (btype, rect, mvk, row_idx), changed)
                 cpad = btype.shape[1]
-                outmap = np.where(
+                om = np.where(
                     outmap >= 0,
-                    outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
-                    -1).astype(np.int32)[:, :T]
+                    outmap + (np.arange(B * G, dtype=np.int32)
+                              * cpad)[:, None],
+                    -1).astype(np.int32)
+                # ragged windows: keep only each window's real frames
+                outmap = np.stack([
+                    np.concatenate([om[b * G + g, : ts[g]]
+                                    for g in range(G)])
+                    for b in range(B)])
             if changed.shape[1] == 0:  # all streams all-stills
                 out = {"start_frame": int(bases[wi]),
                        "significant": self._put(h["sig"]),
@@ -1402,16 +1661,22 @@ class VideoIngestPipeline:
                        "frames_u32": torch.zeros((0, Y, X), dtype=torch.int32,
                                                  device=self.device)}
             else:
-                cmds = [self._put(a) for a in (btype, rect, mvk, h["row_table"],
-                                               row_idx, changed)]
-                if raw:
+                cmds = (btype, rect, mvk, h["row_table"], row_idx, changed)
+                data = ((h["payload"],) if raw else
+                        tuple(h[k] for k in ("refills", "states", "freq")))
+                if mesh is not None:
+                    frames = lane_recon.make_lane_decode_step(
+                        mesh, h["u_pad"], raw=raw,
+                        axes=("dp", "gop") if G > 1 else ("dp",))(
+                            init, *data, *cmds)
+                elif raw:
                     frames = lane_recon.decode_batch_raw(
-                        init, self._put(h["payload"]), *cmds)
+                        init, *map(self._put, data + cmds))
                 else:
                     frames = lane_recon.decode_batch_lane(
-                        init, *(self._put(h[k]) for k in (
-                            "refills", "states", "freq")), *cmds, h["u_pad"])
-                self._carry = frames[:, -1]
+                        init, *map(self._put, data + cmds), h["u_pad"])
+                # a stream's carry: its last entry's last frame
+                self._carry = frames[G - 1:: G, -1]
                 out = {"start_frame": int(bases[wi]),
                        "significant": self._put(h["sig"])}
                 if outmap is not None:
@@ -1422,16 +1687,21 @@ class VideoIngestPipeline:
                     if self.cfg.emit_model_input:
                         out["model_input"] = self._model_tensors(flat)
                 else:
-                    # ragged (keyframe-snapped) windows keep their real
-                    # frames
-                    out["frames_u32"] = frames[:, :T]
+                    # [B*G, Tpad, ...] → [B, G*T, ...]: stream-major entries
+                    # read as one window; ragged (keyframe-snapped) windows
+                    # keep only their real frames
+                    if G == 1:
+                        frames = frames[:, :ts[0]]
+                    else:
+                        frames = torch.cat([frames[g:: G, :ts[g]]
+                                            for g in range(G)], dim=1)
+                    out["frames_u32"] = frames
                     if self.cfg.emit_model_input:
-                        out["model_input"] = self._model_tensors(
-                            out["frames_u32"])
+                        out["model_input"] = self._model_tensors(frames)
             if pending is not None:
                 yield pending
             pending = out
-            wi += 1
+            wi += G
         if pending is not None:
             yield pending
 

@@ -404,40 +404,44 @@ def test_block_transpose_odd_shapes(dev, C, Y, X, BH, offset):
     assert (stack[:, 0] == fill).all() and (stack[:, 2] == fill).all()
 
 
-#: (C, Y, X, BH, offset, pad) → the instance passthru and hpair_i32 take
+#: (C, Y, X, BH, offset, pad) → the instance passthru, hpair_i32 and
+#: wpair_i32 take
+ROW_MODES = ("passthru", "hpair_i32", "wpair_i32")
 ROW_MODE_CASES = {
-    (2, 1080, 1920, 128, 0, 0): ("vec", "vec"),
-    (1, 1080, 1920, 128, 1, 0): ("scalar", "scalar"),
-    (1, 130, 1000, 128, 0, 0): ("vec", "vec"),
-    (65, 37, 45, 12, 0, 0): ("scalar", "scalar"),
-    (2, 300, 132, 128, 0, 0): ("scalar", "vec"),
-    (3, 64, 264, 32, 1, 0): ("scalar", "scalar"),
-    (2, 64, 264, 32, 0, 1): ("scalar", "scalar"),
-    (4, 10, 64, 32, 0, 0): ("vec", "vec"),
-    (5, 200, 96, 8, 0, 0): ("vec", "vec"),
-    (3, 50, 40, 4, 0, 0): ("vec", "vec"),
-    (65, 30, 24, 12, 0, 0): ("vec", "vec"),
-    (4, 37, 1920, 128, 0, 0): ("vec", "vec"),
-    (1, 20, 9000, 16, 0, 0): ("vec", "vec"),
-    (1, 20, 9002, 16, 0, 0): ("scalar", "scalar"),
+    (2, 1080, 1920, 128, 0, 0): ("vec", "vec", "vec"),
+    (1, 1080, 1920, 128, 1, 0): ("scalar", "scalar", "scalar"),
+    (1, 130, 1000, 128, 0, 0): ("vec", "vec", "vec"),
+    (65, 37, 45, 12, 0, 0): ("scalar", "scalar", "scalar"),
+    (2, 300, 132, 128, 0, 0): ("scalar", "vec", "scalar"),
+    (3, 64, 264, 32, 1, 0): ("scalar", "scalar", "scalar"),
+    (2, 64, 264, 32, 0, 1): ("scalar", "scalar", "scalar"),
+    (4, 10, 64, 32, 0, 0): ("vec", "vec", "vec"),
+    (5, 200, 96, 8, 0, 0): ("vec", "vec", "vec"),
+    (3, 50, 40, 4, 0, 0): ("vec", "vec", "vec"),
+    (65, 30, 24, 12, 0, 0): ("vec", "vec", "vec"),
+    (4, 37, 1920, 128, 0, 0): ("vec", "vec", "vec"),
+    (1, 20, 9000, 16, 0, 0): ("vec", "vec", "vec"),
+    (1, 20, 9002, 16, 0, 0): ("scalar", "scalar", "scalar"),
+    (2, 77, 1921, 64, 0, 0): ("scalar", "scalar", "scalar"),
+    (3, 1024, 1924, 128, 0, 0): ("scalar", "vec", "scalar"),
 }
 
 
-@pytest.mark.parametrize("mode", ["passthru", "hpair_i32"])
+@pytest.mark.parametrize("mode", ROW_MODES)
 @pytest.mark.parametrize("case", list(ROW_MODE_CASES))
 def test_row_modes_odd_shapes(dev, mode, case):
-    """passthru and hpair_i32 (ds_probe.cu's rows_kernel) against their
-    twins, bit for bit, and the instance that ran: Y not a multiple of BH,
-    Y odd and Y < BH/2 (zero rows, a last row pair with one row past Y),
-    X/2 not a multiple of 4, BH = 4, 8, 12, C = 1 and 65, rows wider than
-    one pass of the block's threads, frames viewed `offset` words into a
+    """The row modes (ds_probe.cu's rows_kernel) against their twins, bit
+    for bit, and the instance that ran: Y not a multiple of BH, Y odd and
+    Y < BH/2 (zero rows, a last row pair with one row past Y), X odd, X/2
+    not a multiple of 4, BH = 4, 8, 12, C = 1 and 65, rows wider than one
+    pass of the block's threads, frames viewed `offset` words into a
     buffer or `pad` words apart (the 4-byte instance), and an output slot
     between untouched ones."""
     from jsplayer_tpu_torch.experiments.probes import probe_ref, probe_shape
     from jsplayer_tpu_torch.kernels.ds_probe import ds_probe
 
     C, Y, X, BH, offset, pad = case
-    instance = ROW_MODE_CASES[case][mode == "hpair_i32"]
+    instance = ROW_MODE_CASES[case][ROW_MODES.index(mode)]
     f = rand_u32((C, Y, X), seed=C * 11 + Y + X)
     want = probe_ref(f, mode, BH)
     frames = rows_view(f.to(dev), offset, pad)
@@ -1082,3 +1086,40 @@ def test_msv1_ingest_cuda_matches_cpu(dev):
     before = msv1_paint.launches
     outs = ingest_on_both(avis, window=4, model_downscale=2)
     assert msv1_paint.launches == before + len(outs["cuda"])
+
+
+@pytest.mark.parametrize("dp,gop", [(2, 1), (2, 2)])
+def test_mesh_kmv_step_on_card_slots(dev, dp, gop):
+    """The sharded kmv step on a mesh of cuda:0 slots (one card holds
+    every slot) equals the unsharded decode_batch_kmv of the same rows,
+    bit for bit, with one kmv_compose launch a scan step a slot."""
+    from jsplayer_tpu_torch.kernels.sp_recon import decode_batch_kmv, \
+        kmv_compose
+    from jsplayer_tpu_torch.pipeline.batch import DecodeConfig, \
+        make_sp_decode_step_kmv
+    from jsplayer_tpu_torch.pipeline.mesh import make_mesh
+
+    B, G, T, Y, X, K = 4, 2, 5, 72, 136, 2
+    rng = np.random.default_rng(dp * 10 + gop)
+    init = rng.integers(0, 1 << 32, (B, G, Y, X), dtype=np.uint64) \
+        .astype(np.uint32)
+    pc = (rng.integers(0, 1 << 24, (B, G, T, Y, X), dtype=np.uint32)
+          | (rng.integers(0, 4, (B, G, T, Y, X), dtype=np.uint32) << 24)
+          | (rng.integers(0, 4, (B, G, T, Y, X), dtype=np.uint32) << 26))
+    mvk = rng.integers(-200, 200, (B, G, T, K, 2)).astype(np.int32)
+    chg = rng.integers(0, 4, (B, G, T)) > 0
+    mesh = make_mesh(dp=dp, gop=gop, devices=[dev] * (dp * gop))
+    before = kmv_compose.launches
+    got = make_sp_decode_step_kmv(mesh, DecodeConfig(height=Y, width=X))(
+        init, pc, mvk, chg)
+    torch.cuda.synchronize()
+    assert kmv_compose.launches == before + dp * gop * T
+    assert got.device == dev and tuple(got.shape) == (B, G, T, Y, X)
+
+    def flat(a):  # [B, G, ...] → the [B*G, ...] batch on the card
+        a = np.ascontiguousarray(a).reshape((B * G,) + a.shape[2:])
+        return torch.from_numpy(
+            a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+    want = decode_batch_kmv(flat(init), flat(pc), flat(mvk), flat(chg))
+    assert torch.equal(got.reshape((B * G,) + got.shape[2:]), want)

@@ -286,8 +286,9 @@ def test_ingest_cli(tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["path", "mesh", "msv1", "lane"])
 def test_unported_paths_raise(what):
-    """A mesh is not ported on any path: the kmv default, kmv_sparse
-    ("path"), MSV1 sources and lane containers run, but not over a mesh."""
+    """A mesh must be the port's own (pipeline/mesh.Mesh) on every path:
+    the kmv default, kmv_sparse ("path"), MSV1 sources and lane containers
+    raise TypeError for any other object."""
     srcs = [MemorySource(SP3[0])]
     kw = dict(device="cpu", mesh=object())
     if what == "path":
@@ -296,7 +297,7 @@ def test_unported_paths_raise(what):
         srcs = [MemorySource(msv1_avi(1)[0])]
     elif what == "lane":
         srcs = [MemorySource(b"JLV1" + bytes(60))]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="pipeline.mesh.Mesh"):
         P.VideoIngestPipeline(srcs, P.IngestConfig(**kw))
 
 
@@ -379,8 +380,8 @@ def test_block_command_paths_quarantine(path, native, monkeypatch):
 
 @pytest.mark.parametrize("path", ["bc", "kmv_sparse", "lane"])
 def test_unported_sp_paths_raise(path):
-    """bc, kmv_sparse and lane are ported, but not over a mesh."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """bc, kmv_sparse and lane take only the port's own Mesh."""
+    with pytest.raises(TypeError, match="pipeline.mesh.Mesh"):
         P.VideoIngestPipeline([MemorySource(SP3[0])],
                               P.IngestConfig(device="cpu", mesh=object(),
                                              sp_device_path=path))

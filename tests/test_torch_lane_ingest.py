@@ -165,6 +165,6 @@ def test_lane_errors_match_reference():
             pkg.IngestConfig(sp_device_path="lane", **extra))
         with pytest.raises(ValueError, match="mismatched window boundaries"):
             list(pipe)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="pipeline.mesh.Mesh"):
         P.VideoIngestPipeline([MemorySource(RAW[0])],
                               P.IngestConfig(device="cpu", mesh=object()))

@@ -184,6 +184,29 @@ def test_sparse_and_msv1_paths_run_without_importing_jax():
     assert proc.stdout.strip() == "ok 24"
 
 
+TINY_MESH = r"""
+import sys
+from jsplayer_tpu_torch.dryrun import dryrun_multichip
+from jsplayer_tpu_torch.pipeline import mesh
+dryrun_multichip(4, "cpu")
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
+print("ok", mesh.make_mesh(gop=2, devices=["cpu"] * 4).shape)
+"""
+
+
+def test_mesh_and_dryrun_run_without_importing_jax():
+    """pipeline/mesh.py, the sharded steps and ingest routes the dry run
+    drives, and dryrun.py import no jax and nothing of jsplayer_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_MESH], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok {'dp': 2, 'gop': 2}"
+
+
 def port_sources():
     """chip_smoke.py and every .py file of the port's package."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]

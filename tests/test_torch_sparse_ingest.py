@@ -191,12 +191,34 @@ def test_sparse_lane_payload_decodes_on_the_device(monkeypatch):
 
 @pytest.mark.parametrize("mesh_path", ["kmv_sparse", "msv1"])
 def test_sparse_and_msv1_refuse_a_mesh(mesh_path):
-    srcs = [MemorySource(SP3[0] if mesh_path == "kmv_sparse"
-                           else msv1_avi(1)[0])]
-    kw = SPARSE if mesh_path == "kmv_sparse" else {}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.VideoIngestPipeline(srcs, P.IngestConfig(device="cpu",
-                                                   mesh=object(), **kw))
+    """Under a dp=2 mesh of CPU slots, kmv_sparse decodes unsharded (its
+    windows equal the port's own without a mesh, as the reference takes no
+    mesh branch there) and MSV1 shards its streams (its windows equal the
+    JAX package's over the same mesh of virtual CPU devices)."""
+    import jax
+    from jsplayer_tpu.core.source import MemorySource as JSource
+    from jsplayer_tpu.pipeline import ingest as J
+    from jsplayer_tpu.pipeline.mesh import make_mesh as j_make_mesh
+    from jsplayer_tpu_torch.pipeline.mesh import make_mesh
+
+    mesh = make_mesh(dp=2, devices=["cpu"] * 2)
+    if mesh_path == "kmv_sparse":
+        kw = dict(window=4, **SPARSE)
+        want = list(P.VideoIngestPipeline(
+            [MemorySource(a) for a in SP3[:2]],
+            P.IngestConfig(device="cpu", **kw)))
+        avis = SP3[:2]
+    else:
+        kw = dict(window=4)
+        avis = [msv1_avi(s)[0] for s in (1, 2)]
+        want = list(J.VideoIngestPipeline(
+            [JSource(a) for a in avis],
+            J.IngestConfig(mesh=j_make_mesh(dp=2, devices=jax.devices()[:2]),
+                           **kw)))
+    got = list(P.VideoIngestPipeline(
+        [MemorySource(a) for a in avis],
+        P.IngestConfig(device="cpu", mesh=mesh, **kw)))
+    assert_windows_equal(want, got)
 
 
 def test_unknown_path_raises():
