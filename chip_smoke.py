@@ -69,6 +69,21 @@ cuda:0, the hand kernels launched on every slot:
       frames through all_reduce, then the group destroyed;
 
 and, after the MSV1 runs, jsplayer_tpu_torch.dryrun_multichip(4, "cuda").
+
+Phase (t), after the mesh runs, drives the command line through
+jsplayer_tpu_torch.__main__.main: stream 0 transcoded SP v4 -> v3 -> v4
+and to a lane container, each output equal to transcode_sp /
+transcode_to_lane called directly; `render --device cuda` of the
+round-tripped stream (kmv_compose launches counted) and of an MSV1 16-bit
+CIF stream muxed with MP3 silence (one msv1_paint launch a window; the
+WAV where av.pcm.available(), which the log states), every written frame
+equal to its source frame, with each render's frames/s; `info` and `play`
+on the MSV1 stream.  Then packed_consumer_step at ViT-B/16's patch embed
+(16x16, 3 -> 768, bf16) on run (a)'s windows of streams 0 and 1 emitted
+packed (model_packed=True): bit-exact against the same patch embed over
+to_model_input on the card (cuDNN deterministic), and within 2 bf16 ulps
+of its CPU twin; and its times on a [64, 540, 960] window beside
+ds2_pack's (experiments/consumer_step).
 Each mesh run logs its delivered fps beside its unsharded run's (a
 reading: the slots share one card) and its hand kernels' launches, and
 requires one launch a scan step a slot (a window a slot for msv1_paint),
@@ -1743,6 +1758,247 @@ def phase_validate(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase (t): the command line (transcode, render, info, play) and the
+# packed-ds2 consumer
+
+#: render writes every RENDER_EVERY-th 1080p frame (all of the CIF ones)
+RENDER_EVERY = 16
+#: the packed consumer takes run (a)'s first PACKED_B streams
+PACKED_B = 2
+#: the port's host modules that no phase may reach (the web server) or
+#: reaches only on some machines, imported before the no-jax check
+PORT_HOST_MODULES = ("web", "player", "pipeline.manager",
+                     "pipeline.checkpoint", "av.pcm", "native.ffshim",
+                     "codecs.native_sp", "codecs.lane_host",
+                     "core.lane_loader", "__main__")
+
+
+def cli(argv) -> dict:
+    """jsplayer_tpu_torch's main(argv), its standard output captured → the
+    one JSON object it printed."""
+    import contextlib
+    import io
+
+    from jsplayer_tpu_torch.__main__ import main as port_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_main(argv)
+    require(rc == 0, f"{argv[0]} exits 0 ({rc})")
+    return json.loads(out.getvalue())
+
+
+def rendered_rgb(path: str) -> np.ndarray:
+    """A frame file render wrote → [H, W, 3] uint8 RGB (PNG through cv2,
+    or the binary PPM render writes without it)."""
+    if path.endswith(".png"):
+        import cv2
+
+        return cv2.imread(path)[:, :, ::-1]
+    with open(path, "rb") as f:
+        _, dims, _, body = f.read().split(b"\n", 3)
+    w, h = (int(v) for v in dims.split())
+    return np.frombuffer(body, np.uint8).reshape(h, w, 3)
+
+
+def source_rgb(frame: np.ndarray) -> np.ndarray:
+    """A source frame (u32 [Y, X], stored bottom-up) → the RGB image render
+    must write: rows flipped, the high byte red."""
+    img = frame[::-1]
+    return np.stack([(img >> 16) & 0xFF, (img >> 8) & 0xFF, img & 0xFF],
+                    axis=-1).astype(np.uint8)
+
+
+def check_render(res: dict, outdir: str, frames, every: int, what: str):
+    """Every frame render wrote equals its source frame."""
+    import os
+
+    names = sorted(n for n in os.listdir(outdir) if n.startswith("frame_"))
+    require(len(names) == res["frames_written"] == -(-len(frames) // every),
+            f"{what}: {res['frames_written']} frames written")
+    for n in names:
+        gi = int(n[6:12])
+        require(np.array_equal(rendered_rgb(os.path.join(outdir, n)),
+                               source_rgb(frames[gi])),
+                f"{what}: {n} == source frame {gi}")
+
+
+def msv1_av_stream(tmp: str) -> tuple[str, list, int]:
+    """Run (m)'s first stream (MSV1 16-bit CIF, 128 frames) muxed with a
+    track of decodable MP3 silence as long as the video → (path, its
+    source frames u32 [Y, X], the MP3 frames)."""
+    import os
+
+    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+    from jsplayer_tpu_torch.encode.mp3_synth import make_silence_frames
+    from jsplayer_tpu_torch.experiments.msv1_step import msv1_streams
+
+    _, bits, X_, Y_ = MSV1_RUNS[0]
+    s = msv1_streams(bits, 1, T, X_, Y_)
+    P_ = s["period"]
+    mp3, n_mp3, _ = make_silence_frames(int(T / 15.0 * 44100 / 1152) + 1)
+    avi = mux_avi(s["chunks"][0], X_, Y_, bits, codec="CRAM",
+                  keyflags=[t % P_ == 0 for t in range(T)],
+                  sound_chunks=[(0, mp3)])
+    path = os.path.join(tmp, "msv1.avi")
+    with open(path, "wb") as f:
+        f.write(avi)
+    frames = [s["frames"][0][t % P_].reshape(Y_, X_) for t in range(T)]
+    return path, frames, n_mp3
+
+
+def phase_cli(card: str, avis, src, frames) -> dict:
+    """Phase (t): stream 0 transcoded SP v4 -> v3 -> v4 and to a lane
+    container through main(["transcode", ...]), each equal to
+    transcode_sp / transcode_to_lane called directly; render of the
+    round-tripped stream (kmv_compose) and of an MSV1 CIF stream with MP3
+    silence (msv1_paint, and the WAV where pcm.available()) on the card,
+    every written frame equal to its source frame; info and play on the
+    MSV1 stream; then packed_consumer_step at ViT-B/16's patch embed on run
+    (a)'s windows emitted packed (model_packed=True), bit-exact against the
+    same patch embed over to_model_input on the card and within the CPU
+    test's tolerance of its CPU twin, and its times on a 64-frame window
+    (experiments/consumer_step) → numbers for the kernels line."""
+    import os
+    import shutil
+    import tempfile
+    import wave
+
+    from jsplayer_tpu_torch import transcode_sp, transcode_to_lane
+    from jsplayer_tpu_torch.av import pcm
+    from jsplayer_tpu_torch.experiments import consumer_step as CS
+    from jsplayer_tpu_torch.kernels.rgb_convert import (packed_consumer_step,
+                                                        patch_embed,
+                                                        to_model_input)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t_")
+    res = {}
+    try:
+        paths = {n: os.path.join(tmp, n) for n in
+                 ("v4.avi", "v3.avi", "v4b.avi", "s.jlv")}
+        with open(paths["v4.avi"], "wb") as f:
+            f.write(avis[0])
+        t0 = time.perf_counter()
+        for a, b, extra in (("v4.avi", "v3.avi", ["--version", "3"]),
+                            ("v3.avi", "v4b.avi", ["--version", "4"]),
+                            ("v4.avi", "s.jlv", ["--format", "lane"])):
+            cli(["transcode", paths[a], paths[b]] + extra)
+        dt_cli = time.perf_counter() - t0
+        v3 = transcode_sp(avis[0], target_version=3, jobs=0)
+        want = {"v3.avi": v3,
+                "v4b.avi": transcode_sp(v3, target_version=4, jobs=0),
+                "s.jlv": transcode_to_lane(avis[0], window=64, K=2, jobs=0)}
+        for n, data in want.items():
+            with open(paths[n], "rb") as f:
+                require(f.read() == data, f"transcode {n} == the direct call")
+        log(f"phase (t) transcode: stream 0 v4 -> v3 -> v4 and -> lane "
+            f"through the CLI in {dt_cli:.3f} s, each equal to the direct "
+            f"call")
+
+        # render on the card: the round-tripped SP stream, then MSV1 + WAV
+        sp_dir, m_dir = os.path.join(tmp, "r_sp"), os.path.join(tmp, "r_m")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = count_launches(lambda: cli(
+            ["render", paths["v4b.avi"], sp_dir, "--every",
+             str(RENDER_EVERY), "--device", str(DEV)]))
+        dt = time.perf_counter() - t0
+        require_only(launches, ("kmv_compose",), "render SP")
+        check_render(out, sp_dir, frames[0], RENDER_EVERY, "render SP")
+        res["render_sp"] = dict(frames=T, written=out["frames_written"],
+                                seconds=dt, fps=T / dt,
+                                kmv_compose=launches["kmv_compose"])
+        log(f"phase (t) render SP 1080p (stream 0 after v4 -> v3 -> v4): "
+            f"{T} frames decoded, {out['frames_written']} {out['format']} "
+            f"written, in {dt:.3f} s = {T / dt:.1f} frames/s ({card}); "
+            f"kmv_compose launches {launches['kmv_compose']}; every written "
+            f"frame == its source frame")
+        m_path, m_frames, n_mp3 = msv1_av_stream(tmp)
+        t0 = time.perf_counter()
+        out, launches = count_launches(lambda: cli(
+            ["render", m_path, m_dir, "--wav", "--device", str(DEV)]))
+        dt = time.perf_counter() - t0
+        require_only(launches, ("msv1_paint",), "render MSV1")
+        require(launches["msv1_paint"] == T // 16,
+                f"render MSV1: one msv1_paint launch a window ({launches})")
+        check_render(out, m_dir, m_frames, 1, "render MSV1")
+        have_pcm = pcm.available()
+        require((out["wav"] is not None) == have_pcm,
+                f"render MSV1 wrote the WAV iff pcm.available() "
+                f"({have_pcm}, {out['wav']})")
+        if have_pcm:
+            with wave.open(out["wav"], "rb") as w:
+                require(w.getframerate() == 44100
+                        and w.getnframes() == n_mp3 * 1152,
+                        "render MSV1 WAV: 1152 samples an MP3 frame")
+        res["render_msv1"] = dict(frames=T, written=out["frames_written"],
+                                  seconds=dt, fps=T / dt, wav=have_pcm,
+                                  msv1_paint=launches["msv1_paint"])
+        log(f"phase (t) render MSV1 16-bit CIF: {T} frames written "
+            f"({out['format']}) in {dt:.3f} s = {T / dt:.1f} frames/s "
+            f"({card}); msv1_paint launches {launches['msv1_paint']}; "
+            f"pcm.available() {have_pcm}, WAV "
+            f"{'written' if have_pcm else 'not written'}")
+
+        info = cli(["info", m_path])
+        require((info["width"], info["height"], info["nframes"]) ==
+                (*MSV1_RUNS[0][2:], T), f"info {info}")
+        play = cli(["play", m_path])
+        require(play["frames_presented"] >= T - 1, f"play {play}")
+        log(f"phase (t) info {info}; play presented "
+            f"{play['frames_presented']} frames in {play['wall_seconds']} s")
+    finally:
+        shutil.rmtree(tmp)
+
+    # the packed consumer on run (a)'s windows of streams 0 and 1, packed
+    w = CS.vit_b16_weights(DEV)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (batches, _, dt), launches = count_launches(
+            lambda: run_ingest(avis[:PACKED_B], model_packed=True))
+        require(launches["kmv_compose"] > 0 and launches["ds2_pack"] > 0,
+                f"packed run launched kmv_compose and ds2_pack ({launches})")
+        for b in range(PACKED_B):
+            red = gather(batches, timeline_rows(batches, b), "model_input")
+            require(red.dtype == torch.int32
+                    and tuple(red.shape) == (T, Y // 2, X // 2),
+                    f"stream {b} packed planes {list(red.shape)}")
+            got = packed_consumer_step(red, w)
+            dense = to_model_input(src[b].to(DEV), downscale=2)
+            require(torch.equal(got, patch_embed(dense, w)),
+                    f"stream {b}: packed_consumer_step == patch_embed("
+                    f"to_model_input(source, downscale=2)) on the card")
+            cpu = packed_consumer_step(red[:4].cpu(), w.cpu())
+            require(torch.allclose(got[:4].cpu().float(), cpu.float(),
+                                   rtol=2 ** -7, atol=1e-3),
+                    f"stream {b}: within 2 bf16 ulps of the CPU twin")
+            del red, got, dense
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"phase (t) packed consumer: run (a) on streams 0-{PACKED_B - 1} "
+        f"with model_packed=True, {PACKED_B * T} frames in {dt:.3f} s = "
+        f"{PACKED_B * T / dt:.1f} delivered "
+        f"frames/s; launches {launches}; ViT-B/16 embeddings [{T}, "
+        f"{Y // 2 // 16}, {X // 2 // 16}, 768] a stream bit-exact against "
+        f"the patch embed over to_model_input on the card, within 2 bf16 "
+        f"ulps of the CPU twin")
+    res["packed_run"] = dict(fps=PACKED_B * T / dt, launches={
+        k: v for k, v in launches.items() if not isinstance(v, dict) and v})
+    res["consumer"] = c = CS.time_consumer(DEV, yardstick=False)
+    pcs = c["packed_consumer_step"]["matmul"]
+    log(f"phase (t) packed_consumer_step {c['planes']} -> ViT-B/16: "
+        f"{pcs['ms']:.4f} ms/call ({pcs['graph_ms']:.4f} as a graph); "
+        f"unpack_ds2 {c['unpack_ds2']['ms']:.4f}, patch embed "
+        f"{c['patch_embed']['matmul']['ms']:.4f}; ds2_pack on "
+        f"{c['frames']} {c['ds2_pack']['ms']:.4f}; bound "
+        f"{c['bound_ms']:.4f} ms by {c['bound_by']} ({card})")
+    log(f"phase (t): {time.perf_counter() - t_phase:.3f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase (e): the ds2 experiments
 
 #: the ds_probe modes, each at its script's full stack depth
@@ -2087,6 +2343,7 @@ def main() -> int:
     mesh_runs, mesh_sig = phase_mesh_dp(card, avis, src, models)
     mesh_runs.update(phase_mesh_gop(card, frames, src, models))
     phase_nccl(mesh_sig)
+    phase_t = phase_cli(card, avis, src, frames)
     del avis, frames, chunks, src, models
     kernels["msv1_paint"] = phase_msv1_kernel(card)
     msv1 = phase_msv1_runs(card)
@@ -2142,6 +2399,10 @@ def main() -> int:
                                "jsplayer_tpu/kernels/sp_recon.py:738"),
         "msv1_paint": ("jsplayer_tpu_torch/csrc/msv1_paint.cu",
                        "jsplayer_tpu/kernels/msv1_paint.py:45,69")}
+    import importlib
+
+    for mod in PORT_HOST_MODULES:  # the check covers every module of the port
+        importlib.import_module(f"jsplayer_tpu_torch.{mod}")
     ref = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jsplayer_tpu", "jax"))
     require(not ref, f"the run imported nothing of jax or jsplayer_tpu "
@@ -2149,6 +2410,11 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_all:.3f} s")
     for r in kernels.values():  # the share of the bound, by the graph time
         r.setdefault("share", r["bound_ms"] / r.get("graph_ms", r["ms"]))
+    kernels["kmv_compose"]["render_launches"] = \
+        phase_t["render_sp"]["kmv_compose"]
+    kernels["msv1_paint"]["render_launches"] = \
+        phase_t["render_msv1"]["msv1_paint"]
+    kernels["ds2_pack"]["phase_t"] = phase_t
     for name in MESH_KERNELS:  # each kernel's launches in the mesh runs
         kernels[name]["mesh_launches"] = {
             run: got[name] for run, got in mesh_runs.items() if got[name]}

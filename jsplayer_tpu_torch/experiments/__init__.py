@@ -22,6 +22,8 @@ sp_motion.cu modes, bc_compose, the ds_probe modes that one PyTorch call
 matches (block_transpose, passthru, hpair_i32, wpair_i32: each beside that
 call) and the lane path's kernels (lane_compose and the two rANS decodes,
 beside the chain probe's bound); ``lane_runs`` profiles the lane path's
-runs (h) and (j).
+runs (h) and (j); ``consumer_step`` times packed_consumer_step at
+ViT-B/16's patch embed on a 64-frame 1080p window beside ds2_pack (and
+one cuDNN convolution as the patch embed's yardstick).
 Nothing here imports jax.
 """

@@ -6,8 +6,10 @@ holding u32 bits (see device.py); `dtype` is a torch dtype.
 
 ``ds2_pack`` is the CUDA kernel csrc/ds2_pack.cu for tensors on the card
 and its plain twin ``ds2_pack_ref`` for tensors on the CPU.  Everything
-else here is plain torch, as it was XLA (not Pallas) in the JAX package.
-``to_model_input(downscale=2)`` routes through ``ds2_pack`` +
+else here is plain torch, as it was XLA (not Pallas) in the JAX package:
+the Manager's per-pixel colour repacks (Manager.hx:325-390), the channel
+split, ``resize_half`` and the packed-ds2 consumer's patch-embed matrix
+product.  ``to_model_input(downscale=2)`` routes through ``ds2_pack`` +
 ``unpack_ds2``: integer sums then one f32 multiply, bit-exact against the
 unfused epilogue.
 """
@@ -18,6 +20,50 @@ import torch
 
 from .. import _build
 from ..device import cuda_launch_checks
+
+
+#: 0xFF000000, the opaque alpha byte, as the int32 of the same bits
+_ALPHA = -(1 << 24)
+
+
+def rgb15_to_argb(frame: torch.Tensor) -> torch.Tensor:
+    """16bpp ScreenPressor output → ARGB u32 bits (Manager.hx:363-370)."""
+    return _ALPHA | (frame << 3)
+
+
+def rgb_to_abgr(frame: torch.Tensor) -> torch.Tensor:
+    """Packed (b<<16)|(g<<8)|r → 0xFF000000|(r<<16)|(g<<8)|b
+    (Manager.hx:371-381)."""
+    c = frame
+    return _ALPHA | ((c & 0xFF) << 16) | (c & 0xFF00) | ((c >> 16) & 0xFF)
+
+
+def rgb15_to_argb_conv_buffer(frame: torch.Tensor) -> torch.Tensor:
+    """The conversion-buffer 16bpp path (`conv_buffer[i] = src[i] << 11`,
+    Manager.hx:337-343)."""
+    return frame << 11
+
+
+def rgb_to_opaque(frame: torch.Tensor) -> torch.Tensor:
+    """`conv_buffer[i] = 0xFF000000 | c` (Manager.hx:345-355)."""
+    return _ALPHA | frame
+
+
+def split_channels(frame: torch.Tensor, bpp16: bool = False
+                   ) -> torch.Tensor:
+    """u32 bits [..., H, W] → [..., H, W, 3] uint8 in true (R, G, B): the
+    u32's high byte is displayed red and its low byte blue, for both codecs
+    (the reference's canvas swizzle, Manager.hx:377-380).  For 16bpp SP
+    content the 5-bit values are scaled <<3 like the display path (uint8
+    arithmetic: the shift wraps as the JAX package's does)."""
+    c = frame
+    r = ((c >> 16) & 0xFF).to(torch.uint8)
+    g = ((c >> 8) & 0xFF).to(torch.uint8)
+    b = (c & 0xFF).to(torch.uint8)
+    out = torch.stack([r, g, b], dim=-1)
+    if bpp16:
+        out = out << 3
+    return out
 
 
 def _flip_rows(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -155,3 +201,40 @@ def unpack_ds2(
     if layout == "NHWC":
         x = x.movedim(-3, -1)
     return x
+
+
+def patch_embed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A ViT patch-embed conv, stride equal to the patch, VALID (a
+    remainder row or column of patches is dropped): x [N, H, W, C] NHWC,
+    w [ph, pw, C, D] HWIO → [N, H // ph, W // pw, D] in x's dtype.
+
+    Computed as one matrix product: the patches gathered into rows of
+    ph*pw*C values in w's (ph, pw, C) order, times w as a [ph*pw*C, D]
+    matrix (the JAX package's conv_general_dilated with
+    dimension_numbers ("NHWC", "HWIO", "NHWC"))."""
+    ph, pw, C, D = w.shape
+    N, H, W = x.shape[0], x.shape[1] // ph, x.shape[2] // pw
+    p = x[:, : H * ph, : W * pw].reshape(N, H, ph, W, pw, C)
+    p = p.permute(0, 1, 3, 2, 4, 5).reshape(N * H * W, ph * pw * C)
+    return (p @ w.to(x.dtype).reshape(ph * pw * C, D)).reshape(N, H, W, D)
+
+
+def packed_consumer_step(red: torch.Tensor, w: torch.Tensor,
+                         **unpack_kw) -> torch.Tensor:
+    """The consuming side of the packed-ds2 contract: a ViT-style
+    patch-embed conv whose first op takes unpack_ds2's output.
+
+    red: [N, H, W] i32 packed planes (ds2_packed_output contract — flip
+    already applied).  w: [ph, pw, 3, D] patch-embed weights.  Returns
+    [N, H', W', D] embeddings in the unpack's dtype (bf16 default)."""
+    unpack_kw.setdefault("flip_vertical", False)
+    x = unpack_ds2(red, **unpack_kw)            # [N, H, W, 3]
+    return patch_embed(x, w)
+
+
+def resize_half(frame_u8: torch.Tensor) -> torch.Tensor:
+    """2x box downsample on [..., H, W, C] uint8 (ingestion resize): the
+    int32 2x2 sums over H and W (an odd last row or column dropped), // 4,
+    back to uint8."""
+    x = frame_u8.to(torch.int32).movedim(-1, 0)
+    return (_box2(x) // 4).movedim(0, -1).to(torch.uint8)

@@ -369,6 +369,7 @@ class VideoIngestPipeline:
                        and info0.codec == CodecType.SCREENPRESSOR)
         #: per-stream AudioTrack (MP3 sections, PTS, time_loaded watermark)
         self.audio_tracks = [r.audio_track for r in self.readers]
+        self._pcm_cache = None
         # per-stream failure quarantine: a malformed frame freezes that
         # stream at its last good frame; other batch slots continue
         self.quarantined: set[int] = set()
@@ -1398,6 +1399,18 @@ class VideoIngestPipeline:
                               sel[:, None], col[:, None], chg[:, None])
         return frames[:, 0], signif[:, 0]
 
+    def audio_pcm(self):
+        """Per-stream time-aligned PCM tensors (or None where the stream has
+        no audio) — the decoded counterpart of :attr:`audio_tracks`, so A/V
+        consumers get ``[n_samples, ch]`` float32 next to the video model
+        tensors (SURVEY.md §7 step 9; the reference's WebAudio decode,
+        AudioTrack.hx:54-65, delegated here to the system codec backend).
+        Decoded once and cached; requires av.pcm.available()."""
+        if self._pcm_cache is None:
+            from ..av import pcm as _pcm
+            self._pcm_cache = _pcm.decode_tracks(self.audio_tracks)
+        return self._pcm_cache
+
     # -- lane containers -------------------------------------------------------
 
     def _init_lane(self, sources) -> None:
@@ -1432,6 +1445,7 @@ class VideoIngestPipeline:
         # raw sound streams (the Mp3Parser → sections wiring the AVI
         # loader uses)
         self.audio_tracks = [self._lane_audio(c) for c in self.containers]
+        self._pcm_cache = None
         self.quarantined = set()
         self.quarantine_errors = []
 

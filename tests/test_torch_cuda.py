@@ -1123,3 +1123,74 @@ def test_mesh_kmv_step_on_card_slots(dev, dp, gop):
 
     want = decode_batch_kmv(flat(init), flat(pc), flat(mvk), flat(chg))
     assert torch.equal(got.reshape((B * G,) + got.shape[2:]), want)
+
+
+@pytest.mark.parametrize("shape,patch", [((3, 32, 64), 8), ((2, 48, 80), 16)])
+def test_packed_consumer_step_on_the_card(dev, shape, patch):
+    """packed_consumer_step on the card: bit-exact against the same patch
+    embed over to_model_input(downscale=2) on the card, within 2 bf16 ulps
+    (the CPU test's tolerance) of its CPU twin."""
+    from jsplayer_tpu_torch.kernels.rgb_convert import (ds2_packed_output,
+                                                        packed_consumer_step,
+                                                        patch_embed,
+                                                        to_model_input)
+
+    C, Y2, X2 = shape
+    f = (rand_u32((C, 2 * Y2, 2 * X2), seed=patch) & 0xFFFFFF).to(dev)
+    rng = np.random.default_rng(C)
+    w = torch.from_numpy(rng.normal(0, 0.05, (patch, patch, 3, 16)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    red = ds2_packed_output(f)
+    got = packed_consumer_step(red, w)
+    assert torch.equal(got, patch_embed(to_model_input(f, downscale=2), w))
+    cpu = packed_consumer_step(red.cpu(), w.cpu())
+    torch.testing.assert_close(got.cpu().float(), cpu.float(),
+                               rtol=2 ** -7, atol=1e-3)
+
+
+def test_render_on_the_card_matches_the_cpu(dev, tmp_path, capsys):
+    """`render --device cuda` writes the files `--device cpu` writes, an SP
+    stream through kmv_compose and an MSV1 one through msv1_paint."""
+    import os
+
+    from jsplayer_tpu_torch.__main__ import main
+    from jsplayer_tpu_torch.codecs.msvideo1 import from_rgb15
+    from jsplayer_tpu_torch.encode.avi_mux import mux_avi
+    from jsplayer_tpu_torch.encode.msv1_enc import encode_frame_16
+    from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder
+    from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose
+
+    rng = np.random.default_rng(3)
+    enc, sp, ms, prev = ScreenPressorEncoder(4, 32, 32), [], [], None
+    f = np.full((32, 32), 0x102030, dtype=np.uint32)
+    for t in range(6):
+        f = f.copy()
+        f[4 * t:4 * t + 4, 2:30] = rng.integers(0, 1 << 24)
+        sp.append(enc.encode_i(f.reshape(-1)) if t == 0
+                  else enc.encode_p(f.reshape(-1)))
+        m = np.full(32 * 32, from_rgb15(0x0421), dtype=np.uint32)
+        m[: 32 * (t + 1)] = from_rgb15(int(rng.integers(0, 0x8000)))
+        ms.append(encode_frame_16(m, prev, 32, 32))
+        prev = m
+    keys = [t == 0 for t in range(6)]
+    for name, data, counter in (
+            ("sp", mux_avi(sp, 32, 32, 24, codec="SPV4", keyflags=keys),
+             kmv_compose),
+            ("msv1", mux_avi(ms, 32, 32, 16, codec="CRAM", keyflags=keys),
+             msv1_paint)):
+        src = tmp_path / f"{name}.avi"
+        src.write_bytes(data)
+        dirs = {d: str(tmp_path / f"{name}_{d}") for d in ("cpu", "cuda")}
+        before = counter.launches
+        for d, out in dirs.items():
+            assert main(["render", str(src), out, "--window", "4",
+                         "--device", d]) == 0
+        capsys.readouterr()
+        assert counter.launches > before
+        names = sorted(os.listdir(dirs["cpu"]))
+        assert names == sorted(os.listdir(dirs["cuda"])) and len(names) == 6
+        for n in names:
+            with open(os.path.join(dirs["cpu"], n), "rb") as a, \
+                    open(os.path.join(dirs["cuda"], n), "rb") as b:
+                assert a.read() == b.read(), (name, n)

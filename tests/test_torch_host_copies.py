@@ -62,7 +62,14 @@ COPIES = [
     "encode/__init__.py", "encode/sp_enc.py", "encode/avi_mux.py",
     "codecs/msvideo1.py", "codecs/lane_format.py", "transcode.py",
     "encode/msv1_enc.py", "encode/mp3_synth.py",
+    "native/ffshim.py", "native/ffshim.cpp", "av/pcm.py",
+    "codecs/native_sp.py", "codecs/lane_host.py", "core/lane_loader.py",
+    "pipeline/manager.py", "pipeline/checkpoint.py", "player.py", "web.py",
 ]
+
+#: the copies that stand outside the copied subpackages
+TOP_COPIES = ["pipeline/gop.py", "pipeline/manager.py",
+              "pipeline/checkpoint.py", "transcode.py", "player.py", "web.py"]
 
 #: the repairs a copy may carry beyond its import lines: for each file,
 #: the regions (a regex for the first line, a regex for the line after the
@@ -72,6 +79,14 @@ REPAIRS = {
     # the library builds with g++ into build/libjsptpu_host.so, not with
     # make into the package; load() takes a lock (reference fault 3)
     "native/__init__.py": [(r'^"""ctypes bindings', r"^    _tried = True$")],
+    # the FFmpeg shim likewise builds with g++ into
+    # build/libjsptpu_ffshim.so, and load() takes a lock (reference fault 7)
+    "native/ffshim.py": [(r'^"""ctypes bindings', r"^    _tried = True$")],
+    # load() over a live player clears video_info before the new open, so
+    # a source with no video header raises instead of answering with the
+    # old stream's (reference host fault 2)
+    "player.py": [(r"^        # fresh playback state",
+                   r"^        if self\.video_info is None:$")],
     # device_trace used jax.profiler; nothing of the port calls it
     "utils/logging.py": [(r"^TPU-era extensions", r'^"""$'),
                          (r"^LOG = Log\(\)", None)],
@@ -116,14 +131,15 @@ def test_copy_differs_only_in_imports_and_repairs(rel):
 
 def test_every_host_module_of_the_port_is_a_listed_copy():
     """Each module the port keeps in the copied subpackages is in COPIES
-    (so none escapes the text check)."""
+    (so none escapes the text check), and so is each copy outside them:
+    the Manager, its checkpoint, the Player and its web server."""
     found = []
     for sub in ("core", "av", "utils", "codecs", "native", "encode"):
         for name in os.listdir(os.path.join(PORT, sub)):
             if name.endswith((".py", ".cpp")):
                 found.append(f"{sub}/{name}")
-    assert sorted(found + ["pipeline/gop.py", "transcode.py"]) == \
-        sorted(COPIES)
+    assert all(os.path.exists(os.path.join(PORT, rel)) for rel in TOP_COPIES)
+    assert sorted(found + TOP_COPIES) == sorted(COPIES)
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +392,54 @@ def test_native_load_is_thread_safe(monkeypatch):
         t.join()
     monkeypatch.setattr(ctypes, "CDLL", real)
     assert all(lib is not None for lib in got)
+    assert len({id(lib) for lib in got}) == 1
+
+
+def test_ffshim_library_is_the_ports_own():
+    """The port builds ffshim.cpp with g++ into build/ at the repository
+    root, apart from the reference's in-package libffshim.so."""
+    from jsplayer_tpu.native import ffshim as JF
+    from jsplayer_tpu_torch.native import ffshim as PF
+
+    assert PF.available() == JF.available()
+    assert PF._LIB_PATH == os.path.join(ROOT, "build", "libjsptpu_ffshim.so")
+    if PF.available():
+        pa = ctypes.cast(PF.load().ffa_open, ctypes.c_void_p).value
+        ja = ctypes.cast(JF.load().ffa_open, ctypes.c_void_p).value
+        assert pa != ja
+
+
+def test_ffshim_load_is_thread_safe(monkeypatch):
+    """Eight threads call the port's ffshim.load() at once while the first
+    is still loading: every thread gets the same answer, the one library or
+    None where libavcodec is missing (the lock repairs ROADMAP §3 reference
+    fault 7, whose load() sets _tried before it has a library)."""
+    from jsplayer_tpu_torch.native import ffshim as PF
+
+    want = PF.available()
+    real = ctypes.CDLL
+
+    def slow_cdll(*a, **kw):
+        time.sleep(0.3)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(PF, "_lib", None)
+    monkeypatch.setattr(PF, "_tried", False)
+    monkeypatch.setattr(ctypes, "CDLL", slow_cdll)
+    got = [None] * 8
+    start = threading.Barrier(8)
+
+    def one(i):
+        start.wait()
+        got[i] = PF.load()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    monkeypatch.setattr(ctypes, "CDLL", real)
+    assert all((lib is not None) == want for lib in got)
     assert len({id(lib) for lib in got}) == 1
 
 

@@ -207,6 +207,70 @@ def test_mesh_and_dryrun_run_without_importing_jax():
     assert proc.stdout.strip() == "ok {'dp': 2, 'gop': 2}"
 
 
+TINY_HOST = TINY_INGEST.split("pipe = ")[0] + r"""
+import io
+import json
+import os
+import tempfile
+from contextlib import redirect_stdout
+
+import torch
+
+from jsplayer_tpu_torch import (ByteSource, CodecType, FileSource, Player,
+                                PlayerConfig, VideoInfo, __version__,
+                                transcode_sp)
+from jsplayer_tpu_torch.__main__ import main
+from jsplayer_tpu_torch.av import pcm
+from jsplayer_tpu_torch.codecs import lane_host, native_sp
+from jsplayer_tpu_torch.core import lane_loader
+from jsplayer_tpu_torch.kernels import rgb_convert
+from jsplayer_tpu_torch.native import ffshim
+from jsplayer_tpu_torch.pipeline import checkpoint, manager
+from jsplayer_tpu_torch import web
+
+d = tempfile.mkdtemp()
+src = os.path.join(d, "a.avi")
+open(src, "wb").write(avi)
+out = io.StringIO()
+with redirect_stdout(out):
+    for argv in (["info", src], ["play", src],
+                 ["transcode", src, os.path.join(d, "b.avi"), "--jobs", "1"],
+                 ["transcode", src, os.path.join(d, "c.jlv"), "--format",
+                  "lane", "--window", "4", "--jobs", "1"],
+                 ["render", src, os.path.join(d, "r"), "--wav", "--device",
+                  "cpu"]):
+        assert main(argv) == 0, argv
+res = [json.loads("{" + t if not t.startswith("{") else t)
+       for t in out.getvalue().strip().split("\n{")]
+assert res[-1]["frames_written"] == 6, res[-1]
+p = Player(PlayerConfig(indexed=False))
+vi = p.load(src)
+assert (vi.width, vi.codec) == (32, CodecType.SCREENPRESSOR)
+emb = rgb_convert.packed_consumer_step(
+    torch.zeros((2, 16, 16), dtype=torch.int32),
+    torch.zeros((4, 4, 3, 8), dtype=torch.bfloat16))
+assert tuple(emb.shape) == (2, 4, 4, 8)
+assert transcode_sp(avi, target_version=3)[:4] == b"RIFF"
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
+print("ok", __version__, len(os.listdir(os.path.join(d, "r"))))
+"""
+
+
+def test_cli_player_and_web_run_without_importing_jax():
+    """The CLI commands (info, play, transcode, render on the CPU), the
+    public surface, the Player, Manager, web server, checkpoint, PCM, FFmpeg
+    shim, lane host modules and rgb_convert's consumer import no jax and
+    nothing of jsplayer_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_HOST], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok 0.2.0 6"
+
+
 def port_sources():
     """chip_smoke.py and every .py file of the port's package."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
@@ -368,7 +432,8 @@ def test_experiments_run_without_importing_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == [
-        "ok", "bc_step", "block_step", "common", "exp_model_fusion2",
+        "ok", "bc_step", "block_step", "common", "consumer_step",
+        "exp_model_fusion2",
         "exp_pallas_bisect", "exp_pallas_ds", "exp_pallas_ds2", "kmv_step",
         "lane_runs", "lane_step", "msv1_step", "probe_step", "probes",
         "sparse_step", "streams"]
