@@ -84,6 +84,24 @@ packed (model_packed=True): bit-exact against the same patch embed over
 to_model_input on the card (cuDNN deterministic), and within 2 bf16 ulps
 of its CPU twin; and its times on a [64, 540, 960] window beside
 ds2_pack's (experiments/consumer_step).
+Phase (u), after phase (t), runs the last two device functions of the
+JAX package.  (u1): one SP v4 2560x1440 stream of the screen mix (a
+keyframe, then 64 P-frames), the native decoder's captured commands
+packed into tiles by kernels/sparse_payload.pack_sequence (m_max the most
+active blocks of a frame); decode_sequence_sparse (one unpack_payload
+launch for the window, csrc/sparse_payload.cu, then the general scan)
+equal to the source frames and to decode_sequence on the dense payload;
+unpack_payload bit-exact against its one-hot twin (f32 matmul,
+allow_tf32 False) frame by frame and on an edge table (repeated blocks,
+indices past NB and below -1, words at and above 2^24, 0xFFFFFFFF); its
+time on the frame with the most tiles and on the window, beside one
+torch.matmul of the one-hot product (the one-hot build timed apart).
+(u2): decode_sequence_kmv_compact_unrolled (kmv_compose_frames,
+csrc/kmv_compose.cu's cooperative frames instance: U frames a launch) on
+the first 64 compacted changed frames of run (a)'s stream 0 at U = 1, 2,
+4, 8, each bit-equal to decode_sequence_kmv_compact with 64/U launches,
+ms a frame through the wrapper and as a CUDA graph beside the 64
+kmv_compose launches and the per-frame bound.
 Each mesh run logs its delivered fps beside its unsharded run's (a
 reading: the slots share one card) and its hand kernels' launches, and
 requires one launch a scan step a slot (a window a slot for msv1_paint),
@@ -406,8 +424,10 @@ def kernel_counters() -> dict:
     from jsplayer_tpu_torch.kernels.msv1_paint import msv1_paint
     from jsplayer_tpu_torch.kernels.sp_recon import (bc_compose, kmv_compose,
                                                      kmv_compose_ds2,
+                                                     kmv_compose_frames,
                                                      kmv_sparse_compose,
                                                      sp_compose_general)
+    from jsplayer_tpu_torch.kernels.sparse_payload import unpack_payload
 
     return {"kmv_compose": kmv_compose, "ds2_pack": ds2_pack,
             "sp_compose_general": sp_compose_general,
@@ -418,7 +438,8 @@ def kernel_counters() -> dict:
             "rans_decode_aligned": rans_decode_aligned,
             "rans_decode_packed": rans_decode_packed,
             "kmv_sparse_compose": kmv_sparse_compose,
-            "msv1_paint": msv1_paint}
+            "msv1_paint": msv1_paint, "unpack_payload": unpack_payload,
+            "kmv_compose_frames": kmv_compose_frames}
 
 
 def count_launches(fn):
@@ -1999,6 +2020,277 @@ def phase_cli(card: str, avis, src, frames) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase (u): the last two device functions: sparse_payload's tile scatter
+# (unpack_payload, csrc/sparse_payload.cu) under decode_sequence_sparse, and
+# the unrolled compact kmv scan (kmv_compose_frames, csrc/kmv_compose.cu's
+# frames instance)
+
+#: (u1): one SP v4 QHD stream of the bench screen mix, a keyframe then
+#: U1_T P-frames (pack_tiles reshapes by Y // 16, so 1080 rows do not do)
+U1_Y, U1_X, U1_T = 1440, 2560, 64
+#: (u2): the first U2_T compacted changed frames of run (a)'s stream 0
+U2_T = 64
+U2_UNROLLS = (1, 2, 4, 8)
+
+
+def payload_bytes(tb, nb: int, Y_: int, X_: int) -> int:
+    """Bytes unpack_payload must move on its data: [T, Y, X] written, the
+    tile_block rows read, and one 1 KB tile a block that some tile names
+    (tiles that name no block are never read)."""
+    named = int(((tb >= 0) & (tb < nb)).sum())
+    T_ = tb.shape[0] if tb.dim() == 2 else 1
+    return 4 * T_ * Y_ * X_ + io_bytes(tb) + 1024 * named
+
+
+def payload_edges(tiles, tb, nb: int) -> list:
+    """The edge table on one QHD frame's tiles → [(name, tiles, tb)]:
+    repeated blocks (pairs of any words, triples of words below 2^22),
+    indices at and past NB and below -1, words at and above 2^24 and
+    0xFFFFFFFF."""
+    M = tiles.shape[0]
+    rng = np.random.default_rng(14)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (M, 256),
+                                          dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32)).to(DEV)
+    cases = []
+    rep = tb.clone()
+    rep[1::2] = rep[0::2][:len(rep[1::2])]
+    cases.append(("repeated pairs", words, rep))
+    tri = tb.clone()
+    tri[1::3] = tri[0::3][:len(tri[1::3])]
+    tri[2::3] = tri[0::3][:len(tri[2::3])]
+    cases.append(("repeated triples below 2^22", words & ((1 << 22) - 1),
+                  tri))
+    oor = tb.clone()
+    oor[0::3] = nb + torch.arange(len(oor[0::3]), device=DEV,
+                                  dtype=torch.int32)
+    oor[1::3] = -2 - torch.arange(len(oor[1::3]), device=DEV,
+                                  dtype=torch.int32)
+    cases.append(("indices past NB and below -1", tiles, oor))
+    big = words | (1 << 24)
+    big[::4, :16] = -1  # 0xFFFFFFFF
+    big[1::4, :16] = (1 << 24) + 1
+    cases.append(("words >= 2^24 and 0xFFFFFFFF", big, tb))
+    return cases
+
+
+def phase_unpack_payload(card: str) -> dict:
+    """(u1): unpack_payload and decode_sequence_sparse at 2560x1440 on the
+    P-frames of one SP v4 stream, the native decoder's captured commands
+    packed by pack_sequence with m_max the most active blocks of a frame.
+    The scatter equals the one-hot product's twin on the card (f32 matmul,
+    allow_tf32 False) frame by frame and on the edge table; the sparse
+    decode's frames equal the source frames and decode_sequence's on the
+    dense payload.  Times: one frame (the one with the most tiles) and the
+    whole window, through the wrapper and as a CUDA graph, beside the
+    bound, the twin, one torch.matmul of the one-hot product (its one-hot
+    build timed apart)."""
+    from jsplayer_tpu_torch import native
+    from jsplayer_tpu_torch.kernels.sp_recon import decode_sequence
+    from jsplayer_tpu_torch.kernels.sparse_payload import (
+        decode_sequence_sparse, pack_sequence, unpack_payload,
+        unpack_payload_ref)
+    from jsplayer_tpu_torch.utils.corpora import screen_mix
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin's f32 product
+    t0 = time.perf_counter()
+    frames = np.stack(screen_mix(T=U1_T + 1, Y=U1_Y, X=U1_X, seed=14))
+    enc = native.NativeScreenPressorEncoder(4, U1_X, U1_Y)
+    chunks = [enc.encode_i(f.reshape(-1)) if t == 0
+              else enc.encode_p(f.reshape(-1)) for t, f in enumerate(frames)]
+    got = native.native_sp_decode_streams([chunks], U1_X, U1_Y)
+    bts, mv, rect, payload = (got[k][0, 1:] for k in ("bts", "mv", "rect",
+                                                      "payload"))
+    changed = got["changed"][0, 1:]
+    nb = bts.shape[1]
+    active = ((bts > 0) & (bts != 3)).sum(axis=1)
+    m_max = int(active.max())
+    tiles_np, tb_np = pack_sequence(payload, bts, m_max)
+    dt_host = time.perf_counter() - t0
+    require(m_max > 0 and nb == (U1_Y // 16) * (U1_X // 16),
+            f"(u1) P-frames carry tiles (m_max {m_max})")
+    cmds = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(DEV)
+            for a in (bts, mv, rect, tiles_np, tb_np)]
+    bts_d, mv_d, rect_d, tiles, tb = cmds
+    chg = torch.from_numpy(changed.astype(bool)).to(DEV)
+    init = torch.from_numpy(frames[0].view(np.int32)).to(DEV)
+    log(f"(u1) {U1_X}x{U1_Y} stream: {U1_T} P-frames ({int(changed.sum())} "
+        f"changed), NB {nb}, m_max {m_max} (mean {active.mean():.1f} active "
+        f"blocks), tiles {list(tiles.shape)}; encoded, captured and packed "
+        f"in {dt_host:.3f} s")
+
+    # the main path: the scatter for the window, then the general scan
+    (out, signif), launches = count_launches(lambda: decode_sequence_sparse(
+        init, bts_d, mv_d, rect_d, tiles, tb, chg, 0))
+    torch.cuda.synchronize()
+    require(launches["unpack_payload"] == 1
+            and launches["sp_compose_general"] == U1_T,
+            f"(u1) decode_sequence_sparse: one unpack_payload launch, one "
+            f"sp_compose_general a step ({launches})")
+    require(torch.equal(out.cpu(), torch.from_numpy(
+        frames[1:].view(np.int32))), "(u1) every frame == source frame")
+    dense = torch.from_numpy(payload.view(np.int32)).to(DEV)
+    want = decode_sequence(init, bts_d, mv_d, rect_d, dense, chg, 0)
+    require(torch.equal(out, want[0]) and torch.equal(signif, want[1]),
+            "(u1) frames and flags == decode_sequence on the dense payload")
+    del dense, want, out
+
+    window = unpack_payload(tiles, tb, nb, U1_Y, U1_X)
+    err = 0
+    for t in range(U1_T):
+        ref = unpack_payload_ref(tiles[t], tb[t], nb, U1_Y, U1_X)
+        err = max(err, max_abs_err(window[t], ref))
+        require(torch.equal(window[t], ref),
+                f"(u1) unpack_payload frame {t} bit-exact vs the twin")
+    f = int(active.argmax())
+    for name, tl, bl in payload_edges(tiles[f], tb[f], nb):
+        g = unpack_payload(tl, bl, nb, U1_Y, U1_X)
+        ref = unpack_payload_ref(tl, bl, nb, U1_Y, U1_X)
+        err = max(err, max_abs_err(g, ref))
+        require(torch.equal(g, ref), f"(u1) edge case {name}: bit-exact")
+    log(f"(u1) unpack_payload: the {U1_T}-frame window and the edge table "
+        f"(repeated pairs, triples, indices past NB and below -1, words >= "
+        f"2^24, 0xFFFFFFFF) bit-exact vs the one-hot twin")
+    del window
+
+    one_t, one_b = tiles[f], tb[f]
+    onehot = (one_b[None, :].to(torch.int64) == torch.arange(
+        nb, device=DEV)[:, None]).to(torch.float32)
+    words = (one_t.to(torch.int64) & 0xFFFFFFFF).to(torch.float32)
+
+    def frame():
+        unpack_payload(one_t, one_b, nb, U1_Y, U1_X)
+
+    def whole():
+        unpack_payload(tiles, tb, nb, U1_Y, U1_X)
+
+    res = dict(
+        max_abs_err=err, ms=time_ms(frame), graph_ms=graph_ms(frame),
+        plain_ms=time_ms(lambda: unpack_payload_ref(one_t, one_b, nb, U1_Y,
+                                                    U1_X), iters=5),
+        library_ms=time_ms(lambda: torch.matmul(onehot, words)),
+        onehot_build_ms=time_ms(lambda: (one_b[None, :].to(torch.int64) ==
+                                         torch.arange(nb, device=DEV)[:, None])
+                                .to(torch.float32)),
+        library="torch.matmul(onehot [NB, M] f32, tiles [M, 256] f32), "
+                "allow_tf32 False",
+        frame=dict(t=f, M=m_max, named=int(((one_b >= 0) & (one_b < nb))
+                                           .sum())),
+        window_ms=time_ms(whole, iters=10) / U1_T,
+        window_graph_ms=graph_ms(whole, iters=2) / U1_T,
+        window_bound_ms=bound(payload_bytes(tb, nb, U1_Y, U1_X))["bound_ms"]
+        / U1_T,
+        shape=[U1_T, m_max, 256], frame_shape=[U1_Y, U1_X],
+        launches_sparse_decode=launches["unpack_payload"])
+    b = bound(payload_bytes(one_b, nb, U1_Y, U1_X))
+    res.update(bytes=b["bytes"], bound_ms=b["bound_ms"], bound_by="bytes")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"unpack_payload [{U1_Y},{U1_X}] frame {f} (M={m_max}): kernel "
+        f"{res['ms']:.4f} ms through the wrapper, {res['graph_ms']:.4f} as a "
+        f"CUDA graph; plain {res['plain_ms']:.4f}; torch.matmul of the "
+        f"one-hot product {res['library_ms']:.4f} (f32, allow_tf32 False; "
+        f"one-hot build {res['onehot_build_ms']:.4f} apart); {b['bytes']} "
+        f"bytes, bound {b['bound_ms']:.4f} ms, "
+        f"{100 * b['bound_ms'] / res['graph_ms']:.1f}% of bound (graph); the "
+        f"window {res['window_ms']:.4f} ms/frame, "
+        f"{res['window_graph_ms']:.4f} as a graph, bound "
+        f"{res['window_bound_ms']:.4f} ({card})")
+    log(f"(u1): {time.perf_counter() - t_phase:.3f} s")
+    return res
+
+
+def phase_unrolled_scan(card: str, chunk0, src0) -> dict:
+    """(u2): decode_sequence_kmv_compact_unrolled on the first U2_T
+    compacted changed frames of run (a)'s stream 0 (the main path's kmv
+    transport, K=2, B=1), at each U of U2_UNROLLS bit-equal to
+    decode_sequence_kmv_compact and to the source frames, with T/U
+    kmv_compose_frames launches; ms a frame through the wrapper and as one
+    CUDA graph beside the same U2_T kmv_compose launches, the bound on the
+    function's bytes (kmv_bytes) and its DRAM-only variant (prev warm in
+    L2)."""
+    from jsplayer_tpu_torch import native
+    from jsplayer_tpu_torch.kernels.sp_recon import (
+        compact_changed, decode_sequence_kmv_compact,
+        decode_sequence_kmv_compact_unrolled, kmv_compose_frames,
+        kmv_compose_frames_ref)
+
+    t_phase = time.perf_counter()
+    got = native.native_sp_decode_streams_kmv([chunk0], X, Y, K=2)
+    pcc, mvkc, outmap = compact_changed(got["paycode"][0], got["mvk"][0],
+                                        got["changed"][0])
+    require(len(pcc) >= U2_T, f"(u2) stream 0 has {len(pcc)} changed "
+            f"frames, {U2_T} needed")
+    pc = torch.from_numpy(pcc[:U2_T].view(np.int32)).to(DEV)
+    mvk = torch.from_numpy(np.ascontiguousarray(mvkc[:U2_T])).to(DEV)
+    init = torch.zeros((Y, X), dtype=torch.int32, device=DEV)
+    del got, pcc
+    base = decode_sequence_kmv_compact(init, pc, mvk)
+    host = base.cpu()
+    for t in range(T):
+        if 0 <= outmap[t] < U2_T:
+            require(torch.equal(host[outmap[t]], src0[t]),
+                    f"(u2) compact frame {outmap[t]} == source frame {t}")
+    del host
+    chgs = torch.ones(U2_T, dtype=torch.bool, device=DEV)
+    nbytes = kmv_bytes(pc, mvk, chgs) // U2_T
+    dram = bound(io_bytes(pc, base, mvk, chgs))["bound_ms"] / U2_T
+
+    def compact():
+        decode_sequence_kmv_compact(init, pc, mvk)
+
+    res = dict(steps=U2_T, bytes=nbytes, bound_ms=bound(nbytes)["bound_ms"],
+               dram_bound_ms=dram, bound_by="bytes", library_ms=None,
+               kmv_compose=dict(ms=time_ms(compact, iters=5) / U2_T,
+                                graph_ms=graph_ms(compact, iters=1,
+                                                  replays=10) / U2_T),
+               by_unroll={})
+    log(f"(u2) stream 0 compacted: {U2_T} frames [1,{Y},{X}] K=2; "
+        f"kmv_compose x {U2_T}: {res['kmv_compose']['ms']:.4f} ms/frame "
+        f"through the wrapper, {res['kmv_compose']['graph_ms']:.4f} as a "
+        f"graph; bound {res['bound_ms']:.4f} ms/frame, DRAM-only "
+        f"{dram:.4f} ({card})")
+    launches_all = {}
+    for u in U2_UNROLLS:
+        def unrolled():
+            return decode_sequence_kmv_compact_unrolled(init, pc, mvk,
+                                                        unroll=u)
+
+        frames, launches = count_launches(unrolled)
+        torch.cuda.synchronize()
+        require(torch.equal(frames, base),
+                f"(u2) unroll={u} == decode_sequence_kmv_compact")
+        require(launches["kmv_compose_frames"] == U2_T // u
+                and launches["kmv_compose"] == 0,
+                f"(u2) unroll={u}: {U2_T // u} kmv_compose_frames "
+                f"launches ({launches})")
+        launches_all[u] = launches["kmv_compose_frames"]
+        del frames
+        r = dict(ms=time_ms(unrolled, iters=5) / U2_T,
+                 graph_ms=graph_ms(unrolled, iters=1, replays=10) / U2_T,
+                 launches=U2_T // u, grid=kmv_compose_frames.last_grid)
+        res["by_unroll"][u] = r
+        log(f"(u2) unroll={u}: bit-exact, {U2_T // u} launches of grid "
+            f"{r['grid']}; {r['ms']:.4f} ms/frame through the wrapper, "
+            f"{r['graph_ms']:.4f} as a graph "
+            f"({100 * res['bound_ms'] / r['graph_ms']:.1f}% of bound, "
+            f"{100 * dram / r['graph_ms']:.1f}% DRAM-only) ({card})")
+    # one group of U frames on the twin, against the kernel's
+    u4 = decode_sequence_kmv_compact_unrolled(init, pc[:4], mvk[:4], 4)
+    want = kmv_compose_frames_ref(init, pc[:4], mvk[:4])
+    require(torch.equal(u4, want), "(u2) kmv_compose_frames == its twin")
+    res["max_abs_err"] = max_abs_err(u4, want)
+    res["plain_ms"] = time_ms(lambda: kmv_compose_frames_ref(
+        init, pc[:8], mvk[:8]), iters=2, warmup=1) / 8
+    main = res["by_unroll"][4]  # the reference's default unroll
+    res.update(ms=main["ms"], graph_ms=main["graph_ms"], unroll=4,
+               launches_by_unroll=launches_all)
+    log(f"(u2): {time.perf_counter() - t_phase:.3f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase (e): the ds2 experiments
 
 #: the ds_probe modes, each at its script's full stack depth
@@ -2344,6 +2636,13 @@ def main() -> int:
     mesh_runs.update(phase_mesh_gop(card, frames, src, models))
     phase_nccl(mesh_sig)
     phase_t = phase_cli(card, avis, src, frames)
+    kernels["unpack_payload"] = phase_unpack_payload(card)
+    kernels["kmv_compose_frames"] = phase_unrolled_scan(card, chunks[0],
+                                                        src[0])
+    launches["unpack_payload"] = \
+        kernels["unpack_payload"]["launches_sparse_decode"]
+    launches["kmv_compose_frames"] = sum(
+        kernels["kmv_compose_frames"]["launches_by_unroll"].values())
     del avis, frames, chunks, src, models
     kernels["msv1_paint"] = phase_msv1_kernel(card)
     msv1 = phase_msv1_runs(card)
@@ -2398,7 +2697,11 @@ def main() -> int:
         "kmv_sparse_compose": ("jsplayer_tpu_torch/csrc/kmv_sparse.cu",
                                "jsplayer_tpu/kernels/sp_recon.py:738"),
         "msv1_paint": ("jsplayer_tpu_torch/csrc/msv1_paint.cu",
-                       "jsplayer_tpu/kernels/msv1_paint.py:45,69")}
+                       "jsplayer_tpu/kernels/msv1_paint.py:45,69"),
+        "unpack_payload": ("jsplayer_tpu_torch/csrc/sparse_payload.cu",
+                           "jsplayer_tpu/kernels/sparse_payload.py:61"),
+        "kmv_compose_frames": ("jsplayer_tpu_torch/csrc/kmv_compose.cu",
+                               "jsplayer_tpu/kernels/sp_recon.py:621")}
     import importlib
 
     for mod in PORT_HOST_MODULES:  # the check covers every module of the port

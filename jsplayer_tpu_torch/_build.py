@@ -115,6 +115,13 @@ def load() -> ctypes.CDLL:
         lib.jsp_kmv_compose_ds2.restype = i32
         lib.jsp_kmv_compose_ds2.argtypes = [p, i64] * 6 + [i32, i32, i32, i32,
                                                             p]
+        lib.jsp_kmv_compose_frames.restype = i32
+        lib.jsp_kmv_compose_frames.argtypes = [
+            p, p, i64, p, i64, p, i64, i32, i32, i32, i32, i32,
+            ctypes.POINTER(i32), p]
+        lib.jsp_unpack_payload.restype = i32
+        lib.jsp_unpack_payload.argtypes = [p, i64, i64, p, i64, p, p, i32,
+                                           i32, i32, i32, i32, p]
         lib.jsp_bc_compose.restype = i32
         lib.jsp_bc_compose.argtypes = [p, i64] * 7 + [i32, i32, i32, i32, p]
         lib.jsp_lane_compose.restype = i32

@@ -53,7 +53,27 @@
 // the vector path.  An odd last row or column is composed and gets no ds2
 // word (reduce_window VALID).  The sum needs no second read of the frame:
 // the pixels are still in registers.
+//
+// kmv_compose_frames (kmv_frames_kernel) composes U frames of ONE stream in
+// one launch, frame u from frame u-1's output: the U-compose body of
+// jsplayer_tpu/kernels/sp_recon.py decode_sequence_kmv_compact_unrolled
+// (:639-646), a scan step that ran U composes so that the intermediate
+// frames stay near the core.  On Hopper the launch is cooperative and
+// persistent: a grid of as many 256-thread blocks as can be resident at
+// once (the occupancy x the SM count, at most one a tile) walks the frame's
+// tiles of 16 rows x 128 columns with the per-thread design above, then
+// waits at a grid barrier (cooperative_groups' grid.sync(), which also
+// orders the memory) before the next frame, whose prev is the frame just
+// written, read back from the 50 MB L2.  A grid that cannot be co-resident
+// makes the launch fail (cudaErrorCooperativeLaunchTooLarge), which the
+// wrapper raises; it never falls back to U launches.  prev is read with
+// coherent L2 loads (__ldcg), not through the read-only path (__ldg): frame
+// u-1's pixels were written by this same launch, and a non-coherent read
+// could return stale ones.  out must not alias prev or paycode.  What bounds
+// it: bytes, as for one frame a launch, less the launches' gaps.
+#include <atomic>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,7 +91,9 @@ __device__ __forceinline__ int wrap(int v, int n) {
 
 // The compose rule for the pixel (y, x) of a changed stream: w its paycode
 // word, p prev[y, x], pv the stream's prev plane, s_sx/s_sy the slots'
-// reduced shifts.  Both instances compose through it.
+// reduced shifts.  Every instance composes through it; kCoherent reads the
+// shifted prev through L2 (__ldcg) instead of the read-only path.
+template <bool kCoherent = false>
 __device__ __forceinline__ int32_t compose_px(
     uint32_t w, int32_t p, const int32_t* __restrict__ pv, int y, int x,
     const int* s_sx, const int* s_sy, int Y, int X, int K) {
@@ -83,7 +105,8 @@ __device__ __forceinline__ int32_t compose_px(
   if (sy >= Y) sy -= Y;
   int sx = x + s_sx[k];
   if (sx >= X) sx -= X;
-  return __ldg(pv + (long long)sy * X + sx);
+  const int32_t* q = pv + (long long)sy * X + sx;
+  return kCoherent ? __ldcg(q) : __ldg(q);
 }
 
 __device__ __forceinline__ uint32_t fields(uint32_t c) {
@@ -180,8 +203,110 @@ __global__ void __launch_bounds__(kTx * kTy) kmv_compose_kernel(
   }
 }
 
+// The frames instance: U frames of one stream, frame u composed from
+// frame u-1's out (prev for u = 0); paycode [U, Y, X] and out [U, Y, X]
+// with frame strides pc_us and out_us, mvk [U, K, 2] with stride mvk_us.
+// A block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of the gx x
+// gy tiles of a frame; the grid meets at a barrier between frames.
+template <bool kVec>
+__global__ void __launch_bounds__(kTx * kTy) kmv_frames_kernel(
+    const int32_t* prev, const int32_t* __restrict__ paycode, long long pc_us,
+    const int32_t* __restrict__ mvk, long long mvk_us, int32_t* out,
+    long long out_us, int U, int Y, int X, int K, int gx, int tiles) {
+  __shared__ int s_sx[kMaxSlots];
+  __shared__ int s_sy[kMaxSlots];
+  const int tid = threadIdx.y * kTx + threadIdx.x;
+  for (int u = 0; u < U; ++u) {
+    const int32_t* pv = u == 0 ? prev : out + (u - 1) * out_us;
+    const int32_t* pc = paycode + u * pc_us;
+    int32_t* ob = out + u * out_us;
+    if (tid < K) {
+      s_sx[tid] = wrap(mvk[u * mvk_us + 2 * tid], X);
+      s_sy[tid] = wrap(mvk[u * mvk_us + 2 * tid + 1], Y);
+    }
+    __syncthreads();
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int x0 = ((tile % gx) * kTx + threadIdx.x) * kPx;
+      const int y0 = ((tile / gx) * kTy + threadIdx.y) * kRows;
+      if (x0 >= X || y0 >= Y) continue;
+      const int nr = min(kRows, Y - y0);
+      int32_t p[kRows][kPx];
+      uint32_t w[kRows][kPx];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const long long i = (long long)(y0 + r) * X + x0;
+        if (kVec) {
+          int4 a = make_int4(0, 0, 0, 0), c = make_int4(0, 0, 0, 0);
+          if (r < nr) {
+            a = __ldcg((const int4*)(pv + i));
+            c = __ldcs((const int4*)(pc + i));
+          }
+          p[r][0] = a.x; p[r][1] = a.y; p[r][2] = a.z; p[r][3] = a.w;
+          w[r][0] = c.x; w[r][1] = c.y; w[r][2] = c.z; w[r][3] = c.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kPx; ++j) {
+            const bool in = r < nr && x0 + j < X;
+            p[r][j] = in ? __ldcg(pv + i + j) : 0;
+            w[r][j] = in ? (uint32_t)__ldcs(pc + i + j) : 0u;
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < nr) {
+          const long long i = (long long)(y0 + r) * X + x0;
+#pragma unroll
+          for (int j = 0; j < kPx; ++j)
+            p[r][j] = compose_px<true>(w[r][j], p[r][j], pv, y0 + r, x0 + j,
+                                       s_sx, s_sy, Y, X, K);
+          if (kVec) {
+            *(int4*)(ob + i) = make_int4(p[r][0], p[r][1], p[r][2], p[r][3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kPx; ++j)
+              if (x0 + j < X) ob[i + j] = p[r][j];
+          }
+        }
+      }
+    }
+    // frame u is written everywhere before any block reads it as prev;
+    // the barrier also keeps the slot shifts until every block is done
+    if (u + 1 < U) cooperative_groups::this_grid().sync();
+  }
+}
+
 bool aligned(const void* p, unsigned bytes) {
   return (uintptr_t)p % bytes == 0;
+}
+
+// The frames instance's kernel for the layout, and the largest grid of it
+// that can be co-resident on the current device (0 on an error).
+void* frames_kernel(bool vec) {
+  return vec ? (void*)kmv_frames_kernel<true>
+             : (void*)kmv_frames_kernel<false>;
+}
+
+// Asked once a device and layout, then kept: the answer depends only on
+// the compiled kernel and the card, and asking costs host time every call.
+constexpr int kMaxDevices = 64;
+std::atomic<int> resident_cache[kMaxDevices][2];
+
+int resident_blocks(bool vec) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) {
+    const int kept = resident_cache[dev][vec].load(std::memory_order_relaxed);
+    if (kept > 0) return kept;
+  }
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, frames_kernel(vec), kTx * kTy, 0) != cudaSuccess)
+    return 0;
+  if (dev < kMaxDevices)
+    resident_cache[dev][vec].store(per_sm * sms, std::memory_order_relaxed);
+  return per_sm * sms;
 }
 
 template <bool kDs2>
@@ -228,6 +353,42 @@ extern "C" int jsp_kmv_compose_ds2(
     int X, int K, void* stream) {
   return launch<true>(prev, prev_bs, paycode, pc_bs, mvk, mvk_bs, changed,
                       chg_bs, out, out_bs, red, red_bs, B, Y, X, K, stream);
+}
+
+// kmv_compose_frames: prev [Y, X] (rows contiguous), paycode [U, Y, X] and
+// out [U, Y, X] with frame strides pc_us, out_us, mvk [U, K, 2] with frame
+// stride mvk_us.  grid <= 0 sizes the grid to the resident blocks (at most
+// one a tile); grid > 0 asks for that many blocks, and a grid that cannot be
+// co-resident fails the launch.  *grid_used gets the grid launched.
+extern "C" int jsp_kmv_compose_frames(
+    const void* prev, const void* paycode, long long pc_us, const void* mvk,
+    long long mvk_us, void* out, long long out_us, int U, int Y, int X, int K,
+    int grid, int* grid_used, void* stream) {
+  *grid_used = 0;
+  if (U <= 0 || Y <= 0 || X <= 0) return 0;
+  if (K > kMaxSlots) K = kMaxSlots;  // slots >= 8 are unreachable
+  const bool vec = X % kPx == 0 && aligned(prev, 16) &&
+                   aligned(paycode, 16) && aligned(out, 16) &&
+                   pc_us % kPx == 0 && out_us % kPx == 0;
+  int gx = ((X + kPx - 1) / kPx + kTx - 1) / kTx;
+  int gy = ((Y + kRows - 1) / kRows + kTy - 1) / kTy;
+  int tiles = gx * gy;
+  if (grid <= 0) {
+    const int resident = resident_blocks(vec);
+    if (resident <= 0) return (int)cudaErrorLaunchOutOfResources;
+    grid = resident < tiles ? resident : tiles;
+  }
+  void* args[] = {&prev, &paycode, &pc_us, &mvk, &mvk_us, &out, &out_us,
+                  &U, &Y, &X, &K, &gx, &tiles};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      frames_kernel(vec), dim3(grid), dim3(kTx, kTy), args, 0,
+      (cudaStream_t)stream);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();  // the refused launch leaves no sticky error
+    return (int)rc;
+  }
+  *grid_used = grid;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* jsp_error_string(int code) {

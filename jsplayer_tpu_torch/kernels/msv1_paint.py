@@ -19,8 +19,9 @@ one takes unaligned views), its plain twin
 ``msv1_paint_ref`` (``paint_frame_ref`` step by step) for tensors on the
 CPU.  It returns the frames and each step's pixel-diff flag; the block-row
 half and the combine are torch ops on [B, T] (``signif_from``).  The
-reference's ``decode_sequence``, ``decode_batch`` and
-``_decode_sequence_novmap`` keep their names and signatures over it.
+reference's ``decode_sequence``, ``decode_batch``,
+``_decode_sequence_novmap``, ``paint_frame`` (a one-step window) and
+``significant_changes`` keep their names and signatures over it.
 
 u32 words (colours, frames) are int32 tensors holding the bits (device.py).
 """
@@ -87,6 +88,21 @@ def significant_changes_ref(dst, prev, prev_valid, btype,
     pixel_diff = ((dst != prev) & line_mask).any()
     return torch.where(torch.as_tensor(prev_valid, device=dst.device),
                        signif & pixel_diff, signif)
+
+
+#: the reference's significant_changes (XLA there): torch ops on whichever
+#: device the tensors lie, so the plain twin is the function itself
+significant_changes = significant_changes_ref
+
+
+def paint_frame(prev, btype, sel_plane, colors) -> torch.Tensor:
+    """The reference's paint_frame: prev [Y, X] int32 bit view, btype [NB]
+    u8, sel_plane [Y, X] u8, colors [NB, 8] int32 → [Y, X].  A one-step
+    msv1_paint window: csrc/msv1_paint.cu on the card, paint_frame_ref on
+    the CPU."""
+    frames, _ = msv1_paint(prev[None], btype[None, None],
+                           sel_plane[None, None], colors[None, None], 0)
+    return frames[0, 0]
 
 
 def msv1_paint_ref(init, btype, sel, colors, insign_lines

@@ -18,6 +18,10 @@ becomes a Python loop over frames; per-stream shifts are index arithmetic
 inside the kernel.  ``kmv_compose_ds2`` is the same step fused with the
 packed ds2 plane of its output (the in-scan ds2 experiment,
 experiments/exp_model_fusion2.py); the ingest scan does not use it.
+``kmv_compose_frames`` composes U frames of one stream in ONE cooperative
+launch (the same file's frames instance, twin ``kmv_compose_frames_ref``),
+under ``decode_sequence_kmv_compact_unrolled``, the reference's unrolled
+scan; no ingest route runs it either.
 
 The bc transport has the same pixel rule with the block structure in two
 small per-block arrays (bcode, rloc) and a plane that holds only data-rect
@@ -41,6 +45,7 @@ copy against the original.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -298,6 +303,95 @@ def decode_sequence_kmv_compact(init_frame, paycode, mvk):
     chg = torch.ones(paycode.shape[0], dtype=torch.bool,
                      device=paycode.device)
     return decode_sequence_kmv(init_frame, paycode, mvk, chg)
+
+
+def kmv_compose_frames_ref(prev, paycode, mvk) -> torch.Tensor:
+    """Plain twin of kmv_compose_frames: U compose_frame_kmv_ref calls, each
+    from the one before's result → [U, Y, X]."""
+    outs, cur = [], prev
+    for u in range(paycode.shape[0]):
+        cur = compose_frame_kmv_ref(cur, paycode[u], mvk[u])
+        outs.append(cur)
+    return torch.stack(outs) if outs else prev.new_empty((0,) + prev.shape)
+
+
+def kmv_compose_frames(prev: torch.Tensor, paycode: torch.Tensor,
+                       mvk: torch.Tensor, out: torch.Tensor | None = None,
+                       grid: int | None = None) -> torch.Tensor:
+    """U chained kmv composes of one stream: prev [Y, X] int32 bit view,
+    paycode [U, Y, X], mvk [U, K, 2] → out [U, Y, X] (allocated unless
+    given), out[u] composed from out[u-1] (from prev for u = 0).
+
+    The frames instance of csrc/kmv_compose.cu for tensors on the card: ONE
+    cooperative launch for the U frames, a persistent grid that meets at a
+    grid barrier between frames (`grid` blocks when given, else as many as
+    can be resident; a grid that cannot be co-resident raises); the plain
+    twin only for tensors on the CPU.  paycode and out may be strided views
+    whose [Y, X] planes are row-contiguous; out must not overlap prev or
+    paycode.  ``.last_grid`` is the grid of the last launch."""
+    if prev.device.type == "cpu":
+        return cpu_result(kmv_compose_frames_ref(prev, paycode, mvk), out)
+    what = "kmv_compose_frames"
+    U = paycode.shape[0]
+    Y, X = prev.shape
+    if out is None:
+        out = torch.empty((U, Y, X), dtype=torch.int32, device=prev.device)
+    cuda_launch_checks(what, prev, paycode, mvk, out)
+    for name, t in (("prev", prev[None]), ("paycode", paycode),
+                    ("out", out)):
+        if t.shape != (t.shape[0], Y, X) or t.stride(-1) != 1 or \
+                t.stride(-2) != X or (name != "prev" and t.shape[0] != U):
+            raise ValueError(f"{what}: {name} must be row-contiguous "
+                             f"[{U}, {Y}, {X}] planes, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    K = mvk.shape[-2] if mvk.dim() == 3 else -1
+    if mvk.shape != (U, K, 2) or K and (mvk.stride(-1) != 1
+                                        or mvk.stride(-2) != 2):
+        raise ValueError(f"{what}: mvk must be [U, K, 2] with contiguous "
+                         f"[K, 2], got {tuple(mvk.shape)}")
+    for name, t in (("prev", prev[None]), ("paycode", paycode)):
+        if _planes_overlap(out, t):
+            raise ValueError(f"{what}: out must not overlap {name}")
+    if U and Y and X:
+        lib = _build.load()
+        used = ctypes.c_int(0)
+        with torch.cuda.device(prev.device):
+            rc = lib.jsp_kmv_compose_frames(
+                prev.data_ptr(), paycode.data_ptr(), paycode.stride(0),
+                mvk.data_ptr(), mvk.stride(0), out.data_ptr(), out.stride(0),
+                U, Y, X, K, grid or 0, ctypes.byref(used),
+                torch.cuda.current_stream(prev.device).cuda_stream)
+        _build.check(rc, what)
+        kmv_compose_frames.launches += 1
+        kmv_compose_frames.last_grid = used.value
+    return out
+
+
+kmv_compose_frames.launches = 0  # kernel launches (the plain path does not count)
+kmv_compose_frames.last_grid = None
+
+
+def decode_sequence_kmv_compact_unrolled(init_frame, paycode, mvk,
+                                         unroll: int = 4):
+    """Compact kmv scan with `unroll` composes per scan step: init [Y, X],
+    paycode [T, Y, X], mvk [T, K, 2] → frames [T, Y, X], equal to
+    decode_sequence_kmv_compact's.  T must divide by `unroll` (the
+    reference's AssertionError otherwise); zero paycode pads are exact
+    pass-throughs.  One kmv_compose_frames launch a group of `unroll`
+    frames, T/unroll in all (on the CPU, `unroll` calls of
+    compose_frame_kmv_ref a group).  The reference keeps it as a measured
+    negative result on its TPU; the port keeps it for the same question on
+    the card: what one launch for U frames saves against U launches."""
+    T = paycode.shape[0]
+    assert T % unroll == 0, (T, unroll)
+    frames = torch.empty((T,) + tuple(init_frame.shape), dtype=torch.int32,
+                         device=init_frame.device)
+    prev = init_frame
+    for g in range(0, T, unroll):
+        kmv_compose_frames(prev, paycode[g:g + unroll], mvk[g:g + unroll],
+                           out=frames[g:g + unroll])
+        prev = frames[g + unroll - 1]
+    return frames
 
 
 def _model_emit(model_kw):

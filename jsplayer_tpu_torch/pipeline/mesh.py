@@ -19,7 +19,10 @@ port splits explicitly: ``run_bg`` runs a function on each slot's part of
 each slot's rows of a leading-axis spec (``row_slots``: ``P("dp")``,
 replicated over gop, or the lane path's ``P(("dp", "gop"))``); both copy
 every slot's inputs to its device first, then launch every slot, then
-assemble the result on the first local slot's device.
+assemble the result on the first local slot's device.  The reference's
+three ``NamedSharding`` helpers keep their names: ``stream_sharding``,
+``batch_sharding`` and ``replicated`` return a ``Placement``, whose
+``indices`` says which part of an array each slot holds.
 
 Several processes: ``init_multihost`` joins a torch.distributed process
 group over TCP; ``make_mesh`` then lays the slots out process-major, as
@@ -175,6 +178,66 @@ def row_slots(mesh: Mesh, n: int, axes=("dp",)) -> dict:
     k = n // (dp * gop)
     return {(i, j): slice((i * gop + j) * k, (i * gop + j + 1) * k)
             for i, j in mesh.local_slots}
+
+
+class Placement:
+    """How an array lies on a mesh, the port's counterpart of a
+    ``NamedSharding``: ``spec`` has one entry a leading axis, as a
+    ``PartitionSpec`` has (a mesh axis name, a tuple of names, or None);
+    the axes it does not name are whole on every slot."""
+
+    def __init__(self, mesh: Mesh, spec: tuple):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __repr__(self) -> str:
+        return f"Placement(spec={self.spec!r}, mesh={self.mesh.shape})"
+
+    def indices(self, shape) -> dict:
+        """{slot (i, j): the index (a tuple of slices, one an axis of
+        `shape`) of the part that slot holds}, for every slot of the mesh,
+        replicas included: ``NamedSharding.devices_indices_map`` keyed by
+        slot.  An axis its mesh axes do not divide raises ValueError."""
+        dp, gop = self.mesh.devices.shape
+        size = {"dp": dp, "gop": gop}
+        out = {}
+        for i in range(dp):
+            for j in range(gop):
+                coord = {"dp": i, "gop": j}
+                index = [slice(0, n) for n in shape]
+                for d, names in enumerate(self.spec):
+                    if names is None:
+                        continue
+                    names = (names,) if isinstance(names, str) else names
+                    k, c = 1, 0
+                    for name in names:  # major to minor, as JAX orders them
+                        k, c = k * size[name], c * size[name] + coord[name]
+                    _check_div(shape[d], k, "(" + ", ".join(names) + ")")
+                    step = shape[d] // k
+                    index[d] = slice(c * step, (c + 1) * step)
+                out[(i, j)] = tuple(index)
+        return out
+
+
+def stream_sharding(mesh: Mesh) -> Placement:
+    """[B, T, ...] arrays: streams over dp, time/GOP over gop — the
+    reference's ``NamedSharding(mesh, P("dp", "gop"))``, the layout
+    ``bg_slots`` gives and ``run_bg`` runs."""
+    return Placement(mesh, ("dp", "gop"))
+
+
+def batch_sharding(mesh: Mesh) -> Placement:
+    """[B, ...] arrays: streams over dp, replicated over gop — the
+    reference's ``NamedSharding(mesh, P("dp"))``, whose spec is the `axes`
+    ``row_slots`` and ``run_rows`` take (they run each dp row on its gop-0
+    slot, not on the replicas)."""
+    return Placement(mesh, ("dp",))
+
+
+def replicated(mesh: Mesh) -> Placement:
+    """Every slot holds the whole array — the reference's
+    ``NamedSharding(mesh, P())``."""
+    return Placement(mesh, ())
 
 
 def _slot_input(a, rows: slice, n: int, base: int, device,

@@ -19,6 +19,7 @@ from test_torch_block_cases import BLOCK_CASES, MODES, case_fns, run_case, \
     rows_view
 from test_torch_lane_cases import LANE_CASES, run_lane_case
 from test_torch_msv1_cases import MSV1_CASES, run_msv1_case, vector_path
+from test_torch_payload_cases import PAYLOAD_CASES
 from test_torch_sparse_cases import SPARSE_CASES, SPARSE_SEQUENCES, \
     run_sparse_case
 from test_torch_rans_cases import RANS_CASES, offset_view, rans_case_inputs
@@ -1194,3 +1195,266 @@ def test_render_on_the_card_matches_the_cpu(dev, tmp_path, capsys):
             with open(os.path.join(dirs["cpu"], n), "rb") as a, \
                     open(os.path.join(dirs["cuda"], n), "rb") as b:
                 assert a.read() == b.read(), (name, n)
+
+
+# -- sparse_payload: csrc/sparse_payload.cu -----------------------------------
+
+def payload_on_card(tiles, tb, dev):
+    return (torch.from_numpy(np.ascontiguousarray(tiles).view(np.int32))
+            .to(dev), torch.from_numpy(np.ascontiguousarray(tb)).to(dev))
+
+
+@pytest.mark.parametrize("case", sorted(PAYLOAD_CASES))
+def test_unpack_payload_kernel_cases(dev, case):
+    """The scatter against the one-hot product's twin, bit for bit, on
+    every edge of PAYLOAD_CASES (one launch a call)."""
+    from jsplayer_tpu_torch.kernels.sparse_payload import (
+        unpack_payload, unpack_payload_ref)
+    from test_torch_payload_cases import NB, X, Y, case_inputs
+
+    tiles, tb = case_inputs(case)
+    ct, cb = payload_on_card(tiles, tb, dev)
+    before = unpack_payload.launches
+    got = unpack_payload(ct, cb, NB, Y, X)
+    want = unpack_payload_ref(ct, cb, NB, Y, X)
+    torch.cuda.synchronize()
+    assert unpack_payload.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), unpack_payload_ref(
+        ct.cpu(), cb.cpu(), NB, Y, X))
+
+
+@pytest.mark.parametrize("T,M,Y,X", [(1, 8, 32, 64), (4, 40, 96, 160),
+                                     (3, 700, 1440, 2560)])
+@pytest.mark.parametrize("layout", ["contiguous", "every_other",
+                                    "padded_rows", "unaligned_rows"])
+def test_unpack_payload_kernel_windows(dev, T, M, Y, X, layout):
+    """A window in one launch, frame by frame equal to the twin: tiles
+    contiguous, every other tile of a [T, 2M, 256] stack, 256-word rows of
+    [T, M, 260] (16-byte path) and of [T, M, 257] (4-byte path)."""
+    from jsplayer_tpu_torch.kernels.sparse_payload import (
+        unpack_payload, unpack_payload_ref)
+    from test_torch_payload_cases import window_inputs
+
+    nb = (Y // 16) * (X // 16)
+    tiles, tb = window_inputs(T, 2 * M, seed=T + M, nb=nb)
+    ct, cb = payload_on_card(tiles, tb, dev)
+    if layout == "every_other":
+        ct, cb = ct[:, ::2], cb[:, ::2].contiguous()
+    else:
+        ct, cb = ct[:, :M], cb[:, :M].contiguous()
+        if layout != "contiguous":
+            w = 260 if layout == "padded_rows" else 257
+            buf = torch.zeros((T, M, w), dtype=torch.int32, device=dev)
+            buf[..., w - 256:] = ct
+            ct = buf[..., w - 256:]
+    before = unpack_payload.launches
+    got = unpack_payload(ct, cb, nb, Y, X)
+    torch.cuda.synchronize()
+    assert unpack_payload.launches == before + 1
+    for t in range(T):
+        assert torch.equal(got[t], unpack_payload_ref(ct[t], cb[t], nb, Y,
+                                                      X)), t
+
+
+def test_decode_sequence_sparse_on_the_card(dev):
+    """The sparse decode on the card: one unpack_payload launch, one
+    sp_compose_general launch a step, frames and flags equal to the CPU
+    run's."""
+    from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder
+    from jsplayer_tpu_torch.kernels import sp_recon
+    from jsplayer_tpu_torch.kernels.sparse_payload import (
+        decode_sequence_sparse, pack_sequence, unpack_payload)
+    from jsplayer_tpu_torch.pipeline.batch import stack_sp_commands
+
+    Y, X = 64, 128
+    enc = ScreenPressorEncoder(4, X, Y)
+    rng = np.random.default_rng(4)
+    f = rng.integers(0, 1 << 24, (Y, X)).astype(np.uint32)
+    chunks = [enc.encode_i(f.reshape(-1))]
+    for t in range(6):
+        f = f.copy()
+        f[3 * t:3 * t + 9, 5:70] = rng.integers(0, 1 << 24)
+        f[20:, :] = np.roll(f[20:, :], 3, axis=0) if t % 2 else f[20:, :]
+        chunks.append(enc.encode_p(f.reshape(-1)))
+    cmds = stack_sp_commands([chunks], X, Y)
+    bts = cmds["bts"][0, 0]
+    m_max = int(((bts > 0) & (bts != 3)).sum(axis=1).max())
+    tiles, blocks = pack_sequence(cmds["payload"][0, 0], bts, m_max)
+    host = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                             if a.dtype == np.uint32 else a)
+            for a in (bts, cmds["mv"][0, 0], cmds["rect"][0, 0], tiles,
+                      blocks)]
+    chg = torch.from_numpy(cmds["changed"][0, 0])
+    init = torch.zeros((Y, X), dtype=torch.int32)
+    want = decode_sequence_sparse(init, *host, chg, 2)
+    launches = unpack_payload.launches, sp_recon.sp_compose_general.launches
+    got = decode_sequence_sparse(init.to(dev), *(a.to(dev) for a in host),
+                                 chg.to(dev), 2)
+    torch.cuda.synchronize()
+    assert unpack_payload.launches == launches[0] + 1
+    assert sp_recon.sp_compose_general.launches == \
+        launches[1] + len(chunks)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+# -- kmv_compose_frames: csrc/kmv_compose.cu's frames instance ---------------
+
+def frames_inputs(U, Y, X, K, seed, data=0.3, motion=0.5, mv=None):
+    """prev and U kmv frames on the CPU: data, motion and copy pixels; the
+    motion vectors move whole rows, so each frame reads rows the frame
+    before wrote."""
+    rng = np.random.default_rng(seed)
+    prev = rand_u32((Y, X), seed=seed + 1)
+    r = rng.random((U, Y, X))
+    ptype = np.where(r < data, 1, np.where(r < data + motion, 2, 0))
+    word = (rng.integers(0, 1 << 24, (U, Y, X), dtype=np.uint32)
+            | (ptype.astype(np.uint32) << 24)
+            | (rng.integers(0, K + 1, (U, Y, X), dtype=np.uint32) << 26))
+    if mv is None:
+        mv = rng.integers(-3 * max(X, Y), 3 * max(X, Y), (U, K, 2))
+    return (prev, torch.from_numpy(word.view(np.int32)),
+            torch.from_numpy(np.asarray(mv, dtype=np.int32)))
+
+
+@pytest.mark.parametrize("U,Y,X,K", [(1, 16, 16, 1), (2, 48, 80, 2),
+                                     (8, 1080, 1920, 2), (3, 33, 71, 8),
+                                     (4, 40, 62, 3)])
+def test_kmv_compose_frames_kernel(dev, U, Y, X, K):
+    """U chained composes in one launch against U single-frame twins; at
+    1080p U = 8 with vectors of a row or two, so that frame u reads pixels
+    frame u-1 wrote in the same launch (a stale read of them fails)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose_frames,
+                                                     kmv_compose_frames_ref)
+
+    mv = [[[0, 1], [-3, -2]]] * U if Y == 1080 else None
+    prev, pc, mvk = frames_inputs(U, Y, X, K, seed=U * 13 + Y, mv=mv)
+    want = kmv_compose_frames_ref(prev, pc, mvk)
+    out = torch.full((U + 1, Y, X), -5, dtype=torch.int32, device=dev)
+    before = kmv_compose_frames.launches
+    got = kmv_compose_frames(prev.to(dev), pc.to(dev), mvk.to(dev),
+                             out=out[1:])
+    torch.cuda.synchronize()
+    assert kmv_compose_frames.launches == before + 1
+    assert kmv_compose_frames.last_grid > 0
+    assert torch.equal(got.cpu(), want)
+    assert (out[0] == -5).all()
+
+
+@pytest.mark.parametrize("grid", [1, 3, 37])
+def test_kmv_compose_frames_small_grids(dev, grid):
+    """A grid of fewer blocks than tiles walks every tile of every frame."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose_frames,
+                                                     kmv_compose_frames_ref)
+
+    prev, pc, mvk = frames_inputs(4, 96, 256, 2, seed=grid)
+    got = kmv_compose_frames(prev.to(dev), pc.to(dev), mvk.to(dev),
+                             grid=grid)
+    torch.cuda.synchronize()
+    assert kmv_compose_frames.last_grid == grid
+    assert torch.equal(got.cpu(), kmv_compose_frames_ref(prev, pc, mvk))
+
+
+def test_kmv_compose_frames_grid_that_cannot_be_resident_raises(dev):
+    """One block more than can be co-resident (the default grid of a frame
+    with more tiles than that): the cooperative launch is refused and the
+    wrapper raises; the next call runs."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose_frames,
+                                                     kmv_compose_frames_ref)
+
+    prev, pc, mvk = frames_inputs(2, 1080, 1920, 2, seed=9)
+    args = prev.to(dev), pc.to(dev), mvk.to(dev)
+    kmv_compose_frames(*args)
+    most = kmv_compose_frames.last_grid
+    assert 0 < most < 15 * 68  # fewer blocks than the frame's tiles
+    before = kmv_compose_frames.launches
+    with pytest.raises(RuntimeError, match="kmv_compose_frames launch "
+                                           "failed"):
+        kmv_compose_frames(*args, grid=most + 1)
+    assert kmv_compose_frames.launches == before
+    got = kmv_compose_frames(*args, grid=most)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kmv_compose_frames_ref(prev, pc, mvk))
+
+
+def test_kmv_compose_frames_rejects_overlaps(dev):
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose_frames
+
+    buf = torch.zeros((3, 16, 16), dtype=torch.int32, device=dev)
+    mvk = torch.zeros((2, 1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="overlap prev"):
+        kmv_compose_frames(buf[0], buf[1:], mvk, out=buf[:2])
+    with pytest.raises(ValueError, match="overlap paycode"):
+        kmv_compose_frames(buf[0], buf[1:], mvk, out=buf[1:])
+
+
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+def test_unrolled_scan_on_the_card(dev, unroll):
+    """decode_sequence_kmv_compact_unrolled: T / U launches, bit-equal to
+    decode_sequence_kmv_compact on the card and to the CPU twin."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (
+        decode_sequence_kmv_compact, decode_sequence_kmv_compact_unrolled,
+        kmv_compose_frames)
+
+    T = 16
+    prev, pc, mvk = frames_inputs(T, 72, 136, 2, seed=unroll)
+    pc[5] = 0  # an all-copy plane mid-stream
+    args = prev.to(dev), pc.to(dev), mvk.to(dev)
+    before = kmv_compose_frames.launches
+    got = decode_sequence_kmv_compact_unrolled(*args, unroll=unroll)
+    torch.cuda.synchronize()
+    assert kmv_compose_frames.launches == before + T // unroll
+    assert torch.equal(got, decode_sequence_kmv_compact(*args))
+    assert torch.equal(got.cpu(), decode_sequence_kmv_compact_unrolled(
+        prev, pc, mvk, unroll=unroll))
+
+
+def test_kmv_compose_frames_graph_replay(dev):
+    """The cooperative launch captured in a CUDA graph and replayed, an
+    eager call between the replays, equal to the twin each time."""
+    from jsplayer_tpu_torch.kernels.sp_recon import (kmv_compose_frames,
+                                                     kmv_compose_frames_ref)
+
+    prev, pc, mvk = frames_inputs(4, 120, 256, 2, seed=11)
+    want = kmv_compose_frames_ref(prev, pc, mvk)
+    args = prev.to(dev), pc.to(dev), mvk.to(dev)
+    out = torch.empty((4, 120, 256), dtype=torch.int32, device=dev)
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        kmv_compose_frames(*args, out=out)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=s):
+            kmv_compose_frames(*args, out=out)
+        for _ in range(2):
+            out.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), want)
+            out.fill_(-1)
+            kmv_compose_frames(*args, out=out)
+            torch.cuda.synchronize()
+            assert torch.equal(out.cpu(), want)
+
+
+def test_paint_frame_on_the_card(dev):
+    """msv1_paint.paint_frame (a one-step msv1_paint launch) against
+    paint_frame_ref on a random CIF step."""
+    from jsplayer_tpu_torch.kernels.msv1_paint import (msv1_paint,
+                                                       paint_frame,
+                                                       paint_frame_ref)
+
+    Y, X = 288, 352
+    rng = np.random.default_rng(2)
+    nb = (Y // 4) * (X // 4)
+    prev = rand_u32((Y, X), seed=3)
+    bt = torch.from_numpy(rng.integers(0, 3, nb).astype(np.uint8))
+    sel = torch.from_numpy(rng.integers(0, 10, (Y, X)).astype(np.uint8))
+    col = rand_u32((nb, 8), seed=4)
+    before = msv1_paint.launches
+    got = paint_frame(prev.to(dev), bt.to(dev), sel.to(dev), col.to(dev))
+    torch.cuda.synchronize()
+    assert msv1_paint.launches == before + 1
+    assert torch.equal(got.cpu(), paint_frame_ref(prev, bt, sel, col))

@@ -242,6 +242,16 @@ def test_kmv_bytes_counts_what_each_pixel_reads(smoke):
     assert smoke.kmv_bytes(pc, mvk, chg, red) == 4 * words + 32 + 2 + 8
 
 
+def test_payload_bytes_count_the_named_tiles(smoke):
+    """chip_smoke.py's unpack_payload bound: every word of [T, Y, X]
+    written, the tile_block rows read, and one 1 KB tile a named block;
+    pads and indices outside [0, NB) read no tile."""
+    tb = torch.tensor([[0, 3, -1, 7], [8, 2, 2, -5]], dtype=torch.int32)
+    out = 4 * 2 * 32 * 64
+    assert smoke.payload_bytes(tb, 8, 32, 64) == out + 32 + 1024 * 5
+    assert smoke.payload_bytes(tb[0], 8, 32, 64) == out // 2 + 16 + 1024 * 3
+
+
 def test_msv1_bytes_count_the_painted_blocks():
     """experiments/msv1_step's bound: init read and every frame written
     once, btype read, 16 bytes of sel and 32 of colours a painted block, 4

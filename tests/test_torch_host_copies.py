@@ -29,6 +29,7 @@ from jsplayer_tpu.encode.avi_mux import mux_avi as j_mux
 from jsplayer_tpu.encode.mp3_synth import make_frames
 from jsplayer_tpu.encode.sp_enc import ScreenPressorEncoder as JEnc
 from jsplayer_tpu.kernels import lane_transport as JLT
+from jsplayer_tpu.kernels import sparse_payload as JSPay
 from jsplayer_tpu.pipeline.gop import snap_window_starts as j_snap
 from jsplayer_tpu.pipeline.ingest import StreamReader as JReader
 from jsplayer_tpu.utils.corpora import screen_mix as j_mix
@@ -39,6 +40,7 @@ from jsplayer_tpu_torch.encode.avi_mux import mux_avi as p_mux
 from jsplayer_tpu_torch.encode.sp_enc import ScreenPressorEncoder as PEnc
 from jsplayer_tpu_torch.encode.sp_enc import pack_rgb
 from jsplayer_tpu_torch.kernels import lane_transport as PLT
+from jsplayer_tpu_torch.kernels import sparse_payload as PSPay
 from jsplayer_tpu_torch.pipeline.gop import snap_window_starts as p_snap
 from jsplayer_tpu_torch.pipeline.ingest import StreamReader as PReader
 from jsplayer_tpu_torch.utils.corpora import screen_mix as p_mix
@@ -797,6 +799,42 @@ def test_lane_transport_host_helper_is_a_verbatim_copy(name):
     assert inspect.getsource(getattr(PLT, name)) == \
         inspect.getsource(getattr(JLT, name))
     assert PLT._MAGIC == JLT._MAGIC
+
+
+@pytest.mark.parametrize("name", ["pack_tiles", "pack_sequence"])
+def test_sparse_payload_host_helper_is_a_verbatim_copy(name):
+    """kernels/sparse_payload.py's numpy helpers, word for word (the
+    reference module imports jax at the top)."""
+    assert inspect.getsource(getattr(PSPay, name)) == \
+        inspect.getsource(getattr(JSPay, name))
+
+
+@pytest.mark.parametrize("Y,X,m_max", [(32, 64, 8), (48, 32, 6), (16, 16, 1)])
+def test_sparse_payload_host_helpers_match_reference(Y, X, m_max):
+    """The same tiles, block indices and pads on the same frames, and the
+    same errors: too many active blocks, a frame 16 does not divide."""
+    rng = np.random.default_rng(Y + X + m_max)
+    T, nb = 3, (Y // 16) * (X // 16)
+    payload = rng.integers(0, 1 << 32, (T, Y, X), dtype=np.uint64) \
+        .astype(np.uint32)
+    bts = rng.integers(-1, 6, (T, nb)).astype(np.int32)
+    bts[:, m_max:] = np.where(bts[:, m_max:] == 3, 3, 0)  # <= m_max active
+    for got, want in zip(PSPay.pack_sequence(payload, bts, m_max),
+                         JSPay.pack_sequence(payload, bts, m_max)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(PSPay.pack_tiles(payload[0], bts[0], m_max),
+                         JSPay.pack_tiles(payload[0], bts[0], m_max)):
+        np.testing.assert_array_equal(got, want)
+    full = np.ones((T, nb), np.int32)
+    odd = np.zeros((Y + 8, X), np.uint32)
+    for bad in ((payload, full, 0), (odd[None], bts[:1], m_max)):
+        errs = []
+        for mod in (PSPay, JSPay):
+            with pytest.raises(ValueError) as e:
+                mod.pack_sequence(*bad)
+            errs.append(str(e.value))
+        assert errs[0] == errs[1]
 
 
 def test_lane_transport_encode_tiles_differs_only_in_its_encoder():

@@ -325,3 +325,44 @@ def test_mesh_device_must_match():
     with pytest.raises(ValueError, match="does not match"):
         P.VideoIngestPipeline([MemorySource(SP8[0])],
                               P.IngestConfig(mesh=pm, device="cpu"))
+
+
+# -- the reference's NamedSharding helpers (pipeline/mesh.py:61-72) ----------
+
+def _bounds(index, shape):
+    """A tuple of slices → [(start, stop)] over `shape`."""
+    return [s.indices(n)[:2] for s, n in zip(index, shape)]
+
+
+@pytest.mark.parametrize("dp,gop", [(8, 1), (4, 2), (2, 4), (1, 8)])
+@pytest.mark.parametrize("helper,shape", [
+    ("stream_sharding", (8, 16, 3)), ("batch_sharding", (16, 5)),
+    ("replicated", (6, 4))])
+def test_placement_helpers_match_named_sharding(helper, shape, dp, gop):
+    """Each slot (i, j) holds the part that the reference's NamedSharding
+    puts on device i * gop + j of its mesh over the 8 CPU devices; the
+    slots bg_slots and row_slots run hold those parts too."""
+    jm, pm = meshes(dp, gop)
+    want = getattr(JM, helper)(jm).devices_indices_map(shape)
+    got = getattr(PM, helper)(pm).indices(shape)
+    assert len(got) == len(want) == 8
+    for (i, j), index in got.items():
+        dev = jm.devices[i, j]
+        assert _bounds(index, shape) == _bounds(want[dev], shape), (i, j)
+    if helper == "stream_sharding":
+        for slot, (rows, cols) in PM.bg_slots(pm, *shape[:2]).items():
+            assert got[slot][:2] == (rows, cols)
+    elif helper == "batch_sharding":
+        ran = PM.row_slots(pm, shape[0], axes=PM.batch_sharding(pm).spec)
+        assert sorted(ran) == [(i, 0) for i in range(dp)]
+        for slot, rows in ran.items():
+            assert got[slot][0] == rows
+
+
+def test_placement_of_an_axis_the_mesh_does_not_divide_raises():
+    _, pm = meshes(4, 2)
+    with pytest.raises(ValueError, match="do not divide"):
+        PM.stream_sharding(pm).indices((6, 4))
+    with pytest.raises(ValueError, match="do not divide"):
+        PM.batch_sharding(pm).indices((2, 4))
+    assert PM.replicated(pm).indices((3,))[(3, 1)] == (slice(0, 3),)

@@ -94,6 +94,40 @@ def test_paint_and_significance_match_reference(bits, seed):
         prev = np.asarray(want)
 
 
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_public_paint_frame_and_significant_changes_match_reference(bits,
+                                                                     seed):
+    """The reference's names in the port: paint_frame (a one-step
+    msv1_paint window, its plain twin here) and significant_changes, step
+    after step of a fuzzed stream, with and without a previous frame."""
+    bt, sel, col, _ = fuzz_window(bits, seed, B=1)
+    sel = J.sel_to_plane(sel, Y, X)
+    prev = np.random.default_rng(seed + 1).integers(0, 1 << 32, (Y, X),
+                                                    dtype=np.uint32)
+    before = P.msv1_paint.launches
+    for t in range(bt.shape[1]):
+        want = J.paint_frame(jnp.asarray(prev), jnp.asarray(bt[0, t]),
+                             jnp.asarray(sel[0, t]), jnp.asarray(col[0, t]))
+        got = P.paint_frame(t32(prev), torch.from_numpy(bt[0, t]),
+                            torch.from_numpy(np.ascontiguousarray(
+                                sel[0, t])), t32(col[0, t]))
+        assert got.shape == (Y, X)
+        np.testing.assert_array_equal(u32(got), np.asarray(want))
+        for valid in (False, True):
+            for ib, il in ((0, 0), (1, 4), (5, 20)):
+                w = J.significant_changes(
+                    want, jnp.asarray(prev), jnp.asarray(valid),
+                    jnp.asarray(bt[0, t]), jnp.int32(ib), jnp.int32(il),
+                    X // 4)
+                g = P.significant_changes(
+                    got, t32(prev), valid, torch.from_numpy(bt[0, t]), ib,
+                    il, X // 4)
+                assert g.shape == () and bool(g) == bool(w), (t, valid, ib)
+        prev = np.array(want)
+    assert P.msv1_paint.launches == before  # the CPU takes the twin
+
+
 def reference_batch(init, valid, bt, sel, col, chg, ib, il, nbx):
     frames, sig = J.decode_batch(
         jnp.asarray(init), jnp.asarray(valid), jnp.asarray(bt),

@@ -502,3 +502,66 @@ def test_sparse_and_msv1_kernels_never_take_the_plain_path(no_cuda):
                    torch.empty((1, 2, 16, 16), **u8),
                    torch.empty((1, 2, 16, 8), **i32), 0)
     assert kmv_sparse_compose.launches == msv1_paint.launches == 0
+
+
+TINY_LAST_FUNCTIONS = r"""
+import sys
+import numpy as np
+import torch
+from jsplayer_tpu_torch.kernels import msv1_paint, sparse_payload, sp_recon
+from jsplayer_tpu_torch.pipeline import mesh
+
+payload = np.arange(32 * 64, dtype=np.uint32).reshape(32, 64)
+bts = np.array([1, 3, 0, 4, 2, 0, 0, 1], np.int32)
+tiles, blocks = sparse_payload.pack_sequence(payload[None], bts[None], 6)
+dense = sparse_payload.unpack_payload(
+    torch.from_numpy(tiles.view(np.int32)), torch.from_numpy(blocks), 8, 32,
+    64)
+assert dense.shape == (1, 32, 64)
+assert int((dense != 0).sum()) == 4 * 256 - 1, int((dense != 0).sum())
+z = torch.zeros((8, 16, 16), dtype=torch.int32)
+frames = sp_recon.decode_sequence_kmv_compact_unrolled(
+    z[0], z, torch.zeros((8, 2, 2), dtype=torch.int32), unroll=4)
+assert frames.shape == (8, 16, 16)
+p = msv1_paint.paint_frame(z[0], torch.ones(16, dtype=torch.uint8),
+                           torch.zeros((16, 16), dtype=torch.uint8),
+                           torch.full((16, 8), 9, dtype=torch.int32))
+assert bool((p == 9).all())
+m = mesh.make_mesh(dp=2, gop=2, devices=["cpu"] * 4)
+idx = mesh.stream_sharding(m).indices((4, 8))
+assert idx[(1, 1)] == (slice(2, 4), slice(4, 8)), idx
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = [m for m in sys.modules if m.split(".")[0] == "jsplayer_tpu"]
+assert not ref, sorted(ref)
+print("ok", sparse_payload.unpack_payload.launches,
+      sp_recon.kmv_compose_frames.launches)
+"""
+
+
+def test_last_device_functions_run_without_importing_jax():
+    """kernels/sparse_payload.py, the unrolled kmv scan, msv1_paint's
+    paint_frame and the mesh's placement helpers import no jax and nothing
+    of jsplayer_tpu (their CPU branches run no kernel)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", TINY_LAST_FUNCTIONS],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok 0 0"
+
+
+def test_scatter_and_frames_kernels_never_take_the_plain_path(no_cuda):
+    """unpack_payload and kmv_compose_frames: a tensor off the CPU goes to
+    the kernel branch, which raises here (no card)."""
+    from jsplayer_tpu_torch.kernels.sp_recon import kmv_compose_frames
+    from jsplayer_tpu_torch.kernels.sparse_payload import unpack_payload
+
+    meta = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        unpack_payload(torch.empty((2, 256), **meta),
+                       torch.empty(2, **meta), 4, 32, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmv_compose_frames(torch.empty((16, 16), **meta),
+                           torch.empty((2, 16, 16), **meta),
+                           torch.empty((2, 1, 2), **meta))
+    assert unpack_payload.launches == kmv_compose_frames.launches == 0
