@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.logging import LOG, TRACE
+
 
 def resolve_device(name) -> torch.device:
     """``"cuda"``/``"cuda:N"``/``"cpu"`` → torch.device.  Asking for CUDA
@@ -54,8 +56,12 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     """Host→device upload of a numpy array (u32 planes become int32 bit
     views).  A blocking copy: the caller may rewrite `a` as soon as this
     returns, which is what lets the pooled host buffers be refilled by the
-    next window without an event wait."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a).to(device)
+    next window without an event wait.  Counts ``upload.bytes`` and
+    ``upload.calls`` (LOG) and is the ``jsp.upload`` span (TRACE)."""
+    with TRACE.span("jsp.upload"):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        LOG.count("upload.bytes", a.nbytes)
+        LOG.count("upload.calls")
+        return torch.from_numpy(a).to(device)

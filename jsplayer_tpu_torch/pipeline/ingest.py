@@ -61,6 +61,7 @@ imports jax at the top, which this package never does.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, replace
 from typing import Iterator, Optional, Sequence
 
@@ -75,6 +76,7 @@ from ..codecs.msvideo1 import palette_to_u32, parse_commands
 from ..kernels import msv1_paint, sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
 from ..kernels.sp_motion_pallas import decode_batch_fused
+from ..utils.logging import LOG, TRACE
 
 #: the sp_device_path values (the reference's); another raises ValueError
 PORTED_SP_PATHS = ("kmv", "bc", "kmv_sparse", "general", "pallas", "lane")
@@ -86,6 +88,9 @@ PORTED_SP_PATHS = ("kmv", "bc", "kmv_sparse", "general", "pallas", "lane")
 # pooled kmv plane travels with its `dirty` incremental-fill state under
 # one key: the native fill trusts `dirty` to say what the plane holds.
 _BUFFER_POOL: dict = {}
+
+# pipeline serials: a window's trace id is (serial, start frame)
+_SERIALS = itertools.count()
 
 
 def _pool_acquire(key, builder):
@@ -313,7 +318,12 @@ class VideoIngestPipeline:
 
     def __init__(self, sources: Sequence[ByteSource],
                  config: Optional[IngestConfig] = None):
+        TRACE.poll()
+        self._serial = next(_SERIALS)
         self.cfg = config or IngestConfig()
+        # real (timeline) frames of each stream in the window being
+        # decoded, for the counters; __iter__ sets it a window
+        self._n_real = self.cfg.window
         self.device = resolve_device(self.cfg.device)
         # auto-detect lane-container sources (4-byte magic) so ingest works
         # on .jlv files without an explicit sp_device_path="lane"
@@ -350,10 +360,12 @@ class VideoIngestPipeline:
         self._model_dtype = getattr(torch, self.cfg.model_dtype)
         self._carry: Optional[torch.Tensor] = None
         if self.cfg.sp_device_path == "lane":
-            self._init_lane(sources)
+            with TRACE.span("jsp.demux"):
+                self._init_lane(sources)
             return
-        self.readers = [StreamReader(s, streaming=self.cfg.streaming)
-                        for s in sources]
+        with TRACE.span("jsp.demux"):
+            self.readers = [StreamReader(s, streaming=self.cfg.streaming)
+                            for s in sources]
         info0 = self.readers[0].info
         for r in self.readers:
             assert (r.info.width, r.info.height, r.info.codec) == (
@@ -419,13 +431,14 @@ class VideoIngestPipeline:
     def _keyframe_positions(self) -> list[int]:
         """Keyframe indices shared by EVERY stream in the batch (probed
         from frame bytes)."""
-        prober = self._keyframe_prober()
-        keys = None
-        for r in self.readers:
-            ks = {t for t, f in enumerate(r.frames)
-                  if f and prober.is_key_frame(f)}
-            keys = ks if keys is None else (keys & ks)
-        return sorted(keys or ())
+        with TRACE.span("jsp.demux"):
+            prober = self._keyframe_prober()
+            keys = None
+            for r in self.readers:
+                ks = {t for t, f in enumerate(r.frames)
+                      if f and prober.is_key_frame(f)}
+                keys = ks if keys is None else (keys & ks)
+            return sorted(keys or ())
 
     def _range_keyframe(self, t0: int) -> int:
         """Nearest common keyframe ≤ t0 across the batch (the seek reset
@@ -471,11 +484,18 @@ class VideoIngestPipeline:
                         chunk.append(frames)
                     if not got_any:
                         break
-                    out = self._decode_window(chunk, start)
-                    for r in self.readers:
-                        r.release_upto(start + W)  # O(window) residency
-                    self.nframes = max(self.nframes,
-                                       *(r.available() for r in self.readers))
+                    TRACE.poll()
+                    with TRACE.span("jsp.window", (self._serial, start)):
+                        self._n_real = max(0, min(W, max(
+                            r.available() for r in self.readers) - start))
+                        out = self._decode_window(chunk, start)
+                        for r in self.readers:
+                            r.release_upto(start + W)  # O(window) residency
+                        self.nframes = max(
+                            self.nframes,
+                            *(r.available() for r in self.readers))
+                        LOG.count("frames.timeline",
+                                  len(self.readers) * self._n_real)
                     if pending is not None:
                         yield pending
                     pending = out
@@ -503,22 +523,31 @@ class VideoIngestPipeline:
                         chunks.append(chunk)
                     while len(chunks) < G:  # stream-end padding (discarded)
                         chunks.append([[b""] * W for _ in self.readers])
-                    yield from self._decode_sp_window_group(chunks, grp)
+                    TRACE.poll()
+                    with TRACE.span("jsp.window", (self._serial, grp[0])):
+                        outs = self._decode_sp_window_group(chunks, grp)
+                    yield from outs
                 return
             starts = self._window_starts()
             for i, start in enumerate(starts):
                 # keyframe-aligned windows may be shorter than W: decode
                 # [start, end), pad the chunk to W with no-change frames,
                 # trim the emission
-                end = starts[i + 1] if i + 1 < len(starts) else start + W
-                chunk = []
-                for r in self.readers:
-                    frames = r.frames[start:end]
-                    frames += [b""] * (W - len(frames))  # empty = no change
-                    chunk.append(frames)
-                out = self._decode_window(chunk, start)
-                if end - start < W:
-                    out = _trim_window(out, end - start)
+                TRACE.poll()
+                with TRACE.span("jsp.window", (self._serial, start)):
+                    end = (starts[i + 1] if i + 1 < len(starts)
+                           else start + W)
+                    chunk = []
+                    for r in self.readers:
+                        frames = r.frames[start:end]
+                        frames += [b""] * (W - len(frames))  # no change
+                        chunk.append(frames)
+                    self._n_real = max(0, min(end, self.nframes) - start)
+                    out = self._decode_window(chunk, start)
+                    if end - start < W:
+                        out = _trim_window(out, end - start)
+                    LOG.count("frames.timeline",
+                              len(self.readers) * self._n_real)
                 if pending is not None:
                     yield pending
                 pending = out
@@ -615,13 +644,15 @@ class VideoIngestPipeline:
             dirty = self._kmvbuf["dirty"]
             changed = np.zeros((B, T), dtype=bool)
             sig = np.zeros((B, T), dtype=bool)
-            for b, frames in enumerate(chunk):
-                dec = decs[b]
-                for t, src in enumerate(frames):
-                    changed[b, t], sig[b, t] = self._guard(
-                        b, lambda: dec.decompress_kmv(
-                            src, dec.is_key_frame(src), pc[b, t], mvk[b, t],
-                            K=K, dirty=dirty[b, t]), default=(False, False))
+            with TRACE.span("jsp.entropy"):
+                for b, frames in enumerate(chunk):
+                    dec = decs[b]
+                    for t, src in enumerate(frames):
+                        changed[b, t], sig[b, t] = self._guard(
+                            b, lambda: dec.decompress_kmv(
+                                src, dec.is_key_frame(src), pc[b, t],
+                                mvk[b, t], K=K, dirty=dirty[b, t]),
+                            default=(False, False))
             return self._kmv_route(pc, mvk, changed, sig, start)
         # command capture (bts/mv/rect + the decoded frame as payload) by
         # the native decoder or the pure-Python oracle; window buffers are
@@ -637,53 +668,73 @@ class VideoIngestPipeline:
         bts, mv, rect, payload = buf["bts"], buf["mv"], buf["rect"], buf["payload"]
         changed = np.zeros((B, T), dtype=bool)
         sig = np.zeros((B, T), dtype=bool)
-        for b, frames in enumerate(chunk):
-            dec = decs[b]
-            for t, src in enumerate(frames):
-                if self._sp_native:
-                    isk = dec.is_key_frame(src)
-                    got = self._guard(b, lambda: dec.decompress(
-                        src, isk, capture=True, copy=False))
-                    if got is None:  # quarantined: frozen at last good frame
-                        continue
-                    view, _sig, cap = got
-                    sig[b, t] = bool(_sig)
-                    if view is None:  # no change: the decoder's latest frame
-                        view = dec.latest_view()
-                    # the view lives until the next decompress call
-                    payload[b, t] = np.asarray(view).reshape(Y, X)
-                else:
-                    got = self._guard(b, lambda: _oracle_decode_step(
-                        dec, src, dec.is_key_frame(src), X, Y))
-                    if got is None:  # quarantined: frozen, changed stays False
-                        continue
-                    sig[b, t], cap = got
-                    data = dec.previous_frame()
-                    if data is not None:
-                        payload[b, t] = data.reshape(Y, X)
-                bts[b, t] = cap["bts"]
-                mv[b, t] = cap["mv"]
-                rect[b, t] = cap["rect"]
-                changed[b, t] = cap["changed"]
+        with TRACE.span("jsp.entropy"):
+            for b, frames in enumerate(chunk):
+                dec = decs[b]
+                for t, src in enumerate(frames):
+                    if self._sp_native:
+                        isk = dec.is_key_frame(src)
+                        got = self._guard(b, lambda: dec.decompress(
+                            src, isk, capture=True, copy=False))
+                        # quarantined: frozen at the last good frame
+                        if got is None:
+                            continue
+                        view, _sig, cap = got
+                        sig[b, t] = bool(_sig)
+                        # no change: the decoder's latest frame
+                        if view is None:
+                            view = dec.latest_view()
+                        # the view lives until the next decompress call
+                        payload[b, t] = np.asarray(view).reshape(Y, X)
+                    else:
+                        got = self._guard(b, lambda: _oracle_decode_step(
+                            dec, src, dec.is_key_frame(src), X, Y))
+                        # quarantined: frozen, changed stays False
+                        if got is None:
+                            continue
+                        sig[b, t], cap = got
+                        data = dec.previous_frame()
+                        if data is not None:
+                            payload[b, t] = data.reshape(Y, X)
+                    bts[b, t] = cap["bts"]
+                    mv[b, t] = cap["mv"]
+                    rect[b, t] = cap["rect"]
+                    changed[b, t] = cap["changed"]
         if self.cfg.sp_device_path != "kmv":
             return self._block_route(bts, mv, rect, payload, changed, start)
-        pcs, mvks = [], []
-        for b in range(B):
-            if b in self.quarantined:
-                # frozen slot: its pooled command rows are stale and
-                # changed[b] is all-False — skip the per-pixel prep
-                pcs.append(np.zeros((T, Y, X), dtype=np.uint32))
-                mvks.append(np.zeros((T, K, 2), dtype=np.int32))
-                continue
-            pc_b, mvk_b = sp_recon.prepare_kmv(
-                bts[b], mv[b], rect[b], payload[b], K=K)
-            pcs.append(pc_b)
-            mvks.append(mvk_b)
-        return self._kmv_route(np.stack(pcs), np.stack(mvks), changed, sig,
-                               start)
+        with TRACE.span("jsp.prep"):
+            pcs, mvks = [], []
+            for b in range(B):
+                if b in self.quarantined:
+                    # frozen slot: its pooled command rows are stale and
+                    # changed[b] is all-False — skip the per-pixel prep
+                    pcs.append(np.zeros((T, Y, X), dtype=np.uint32))
+                    mvks.append(np.zeros((T, K, 2), dtype=np.int32))
+                    continue
+                pc_b, mvk_b = sp_recon.prepare_kmv(
+                    bts[b], mv[b], rect[b], payload[b], K=K)
+                pcs.append(pc_b)
+                mvks.append(mvk_b)
+            pc, mvk = np.stack(pcs), np.stack(mvks)
+        return self._kmv_route(pc, mvk, changed, sig, start)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.device)
+
+    def _count_scan(self, scanned: int, changed=None, first: int = 0
+                    ) -> None:
+        """Counters of a window's device scan: `scanned` rows enter it, and
+        those that hold no real frame are padding.  An elided window's
+        `changed` [rows, T] says which real frames enter it; its other real
+        frames are the stills kept out.  `first` leading frames of each
+        stream ride as the scan's init instead."""
+        real = len(self.readers) * (self._n_real - first)
+        if changed is not None:
+            rows = int(changed[:, : self._n_real].sum())
+            LOG.count("frames.elided", real - rows)
+            real = rows
+        LOG.count("frames.scanned", scanned)
+        LOG.count("rows.padded", scanned - real)
 
     def _block_route(self, bts, mv, rect, payload, changed, start) -> dict:
         """The "general" and "pallas" paths: the captured commands and
@@ -693,9 +744,12 @@ class VideoIngestPipeline:
         still-elision and no model-only emission."""
         decode = (decode_batch_fused if self.cfg.sp_device_path == "pallas"
                   else sp_recon.decode_batch)
-        frames, signif = decode(
-            self._carry_init(bts.shape[0]), self._put(bts), self._put(mv),
-            self._put(rect), self._put(payload), self._put(changed), 0)
+        self._count_scan(changed.size)
+        with TRACE.span("jsp.scan"):
+            frames, signif = decode(
+                self._carry_init(bts.shape[0]), self._put(bts),
+                self._put(mv), self._put(rect), self._put(payload),
+                self._put(changed), 0)
         self._carry = frames[:, -1]
         return self._emit(frames, signif, start)
 
@@ -709,31 +763,39 @@ class VideoIngestPipeline:
         if self.cfg.still_elision and (self.cfg.mesh is not None or B > 1):
             return self._kmv_elided(pc, mvk, changed, sig, init, start)
         if self.cfg.mesh is not None:
-            frames = self._sharded_kmv_step(pc, mvk, changed)
+            self._count_scan(changed.size)
+            with TRACE.span("jsp.scan"):
+                frames = self._sharded_kmv_step(pc, mvk, changed)
             self._carry = frames[:, -1]
             return self._emit(frames, self._put(sig), start)
         if self.cfg.still_elision:  # single stream: exact compact scan
-            pcc, mvkc, outmap = sp_recon.compact_changed(
-                pc[0], mvk[0], changed[0])
-            frames = sp_recon.decode_sequence_kmv_compact(
-                init[0], self._put(pcc), self._put(mvkc))[None]
+            with TRACE.span("jsp.compact"):
+                pcc, mvkc, outmap = sp_recon.compact_changed(
+                    pc[0], mvk[0], changed[0])
+            self._count_scan(pcc.shape[0], changed)
+            with TRACE.span("jsp.scan"):
+                frames = sp_recon.decode_sequence_kmv_compact(
+                    init[0], self._put(pcc), self._put(mvkc))[None]
             self._carry = frames[:, -1] if pcc.shape[0] else init
             out = {"start_frame": start, "significant": self._put(sig),
                    "frames_u32": frames, "outmap": outmap}
             if self.cfg.emit_model_input:
                 out["model_input"] = self._model_tensors(frames)
             return out
+        self._count_scan(changed.size)
         if not self.cfg.emit_frames and self.cfg.emit_model_input:
-            carry, model = sp_recon.decode_batch_kmv_model(
-                init, self._put(pc), self._put(mvk), self._put(changed),
-                dtype=self._model_dtype,
-                downscale=self.cfg.model_downscale, bpp16=self._bpp16,
-                packed=self.cfg.model_packed)
+            with TRACE.span("jsp.scan"):
+                carry, model = sp_recon.decode_batch_kmv_model(
+                    init, self._put(pc), self._put(mvk), self._put(changed),
+                    dtype=self._model_dtype,
+                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
+                    packed=self.cfg.model_packed)
             self._carry = carry
             return {"start_frame": start, "significant": self._put(sig),
                     "model_input": model}
-        frames = sp_recon.decode_batch_kmv(
-            init, self._put(pc), self._put(mvk), self._put(changed))
+        with TRACE.span("jsp.scan"):
+            frames = sp_recon.decode_batch_kmv(
+                init, self._put(pc), self._put(mvk), self._put(changed))
         self._carry = frames[:, -1]
         return self._emit(frames, self._put(sig), start)
 
@@ -754,12 +816,14 @@ class VideoIngestPipeline:
             flattened with per-stream offsets."""
         B = pc.shape[0]
         vi = self.info
-        pcc, mvkc, valid, outmap = sp_recon.compact_changed_batch(
-            pc, mvk, changed)
+        with TRACE.span("jsp.compact"):
+            pcc, mvkc, valid, outmap = sp_recon.compact_changed_batch(
+                pc, mvk, changed)
         cpad = pcc.shape[1]
         counts = valid.sum(axis=1).astype(np.int64)
         out = {"start_frame": start, "significant": self._put(sig)}
         if cpad == 0:  # all streams all-stills: nothing to decode
+            self._count_scan(0, changed)
             out["outmap"] = outmap  # all -1
             if self.cfg.emit_frames:
                 out["frames_u32"] = torch.zeros(
@@ -767,26 +831,31 @@ class VideoIngestPipeline:
                     device=self.device)
             return out
 
-        full_first = self.cfg.mesh is None and all(
-            counts[b] == 0
-            or bool((((pcc[b, 0] >> 24) & 3) == 1).all())
-            for b in range(B))
+        with TRACE.span("jsp.prep"):
+            full_first = self.cfg.mesh is None and all(
+                counts[b] == 0
+                or bool((((pcc[b, 0] >> 24) & 3) == 1).all())
+                for b in range(B))
         self.stats["concat_windows" if full_first else "padded_windows"] += 1
         if full_first:
             # concat layout: per-stream compacted runs back to back
-            offsets = np.zeros(B, dtype=np.int64)
-            np.cumsum(counts[:-1], out=offsets[1:])
-            cat_pc = np.concatenate(
-                [pcc[b, : counts[b]] for b in range(B)] or
-                [np.zeros((0,) + pcc.shape[2:], pcc.dtype)])
-            cat_mv = np.concatenate(
-                [mvkc[b, : counts[b]] for b in range(B)])
-            outmap_flat = np.where(
-                outmap >= 0, outmap + offsets[:, None], -1).astype(np.int32)
+            with TRACE.span("jsp.prep"):
+                offsets = np.zeros(B, dtype=np.int64)
+                np.cumsum(counts[:-1], out=offsets[1:])
+                cat_pc = np.concatenate(
+                    [pcc[b, : counts[b]] for b in range(B)] or
+                    [np.zeros((0,) + pcc.shape[2:], pcc.dtype)])
+                cat_mv = np.concatenate(
+                    [mvkc[b, : counts[b]] for b in range(B)])
+                outmap_flat = np.where(
+                    outmap >= 0, outmap + offsets[:, None],
+                    -1).astype(np.int32)
+            self._count_scan(cat_pc.shape[0], changed)
             # (fused model-only emission still decodes the frame stack
             # here: the per-stream carries come from frame rows)
-            frames = sp_recon.decode_sequence_kmv_compact(
-                init[0], self._put(cat_pc), self._put(cat_mv))
+            with TRACE.span("jsp.scan"):
+                frames = sp_recon.decode_sequence_kmv_compact(
+                    init[0], self._put(cat_pc), self._put(cat_mv))
             ends = offsets + counts  # exclusive
             self._carry = torch.stack([
                 frames[int(ends[b]) - 1] if counts[b] else init[b]
@@ -799,27 +868,31 @@ class VideoIngestPipeline:
             return out
 
         # padded layout (mid-GOP windows or a mesh): [B, Cpad] → flat
-        outmap_flat = np.where(
-            outmap >= 0,
-            outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
-            -1).astype(np.int32)
+        with TRACE.span("jsp.prep"):
+            outmap_flat = np.where(
+                outmap >= 0,
+                outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
+                -1).astype(np.int32)
         out["outmap"] = outmap_flat
+        self._count_scan(valid.size, changed)
         if (self.cfg.mesh is None and not self.cfg.emit_frames
                 and self.cfg.emit_model_input):
             # fused: the compacted masked scan emits ONLY model tensors
-            carry, model = sp_recon.decode_batch_kmv_model(
-                init, self._put(pcc), self._put(mvkc), self._put(valid),
-                dtype=self._model_dtype,
-                downscale=self.cfg.model_downscale, bpp16=self._bpp16,
-                packed=self.cfg.model_packed)
+            with TRACE.span("jsp.scan"):
+                carry, model = sp_recon.decode_batch_kmv_model(
+                    init, self._put(pcc), self._put(mvkc), self._put(valid),
+                    dtype=self._model_dtype,
+                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
+                    packed=self.cfg.model_packed)
             self._carry = carry
             out["model_input"] = model.reshape((B * cpad,) + model.shape[2:])
             return out
-        if self.cfg.mesh is not None:
-            frames = self._sharded_kmv_step(pcc, mvkc, valid)
-        else:
-            frames = sp_recon.decode_batch_kmv(
-                init, self._put(pcc), self._put(mvkc), self._put(valid))
+        with TRACE.span("jsp.scan"):
+            if self.cfg.mesh is not None:
+                frames = self._sharded_kmv_step(pcc, mvkc, valid)
+            else:
+                frames = sp_recon.decode_batch_kmv(
+                    init, self._put(pcc), self._put(mvkc), self._put(valid))
         self._carry = frames[:, -1]
         flat = frames.reshape((-1,) + frames.shape[2:])
         if self.cfg.emit_frames:
@@ -852,38 +925,40 @@ class VideoIngestPipeline:
         bcode, rloc = buf["bcode"], buf["rloc"]
         changed = np.zeros((B, T), dtype=bool)
         sig = np.zeros((B, T), dtype=bool)
-        if self._sp_native:
-            for b, frames in enumerate(chunk):
-                dec = decs[b]
-                for t, src in enumerate(frames):
-                    changed[b, t], sig[b, t] = self._guard(
-                        b, lambda: dec.decompress_bc(
-                            src, dec.is_key_frame(src), plane[b, t],
-                            mvk[b, t], bcode[b, t], rloc[b, t], K=K),
-                        default=(False, False))
-        else:
-            for b, frames in enumerate(chunk):
-                dec = decs[b]
-                bts = np.zeros((T, nb), dtype=np.int32)
-                mv = np.zeros((T, nb, 2), dtype=np.int32)
-                rect = np.zeros((T, nb, 4), dtype=np.int32)
-                payload = np.zeros((T, Y, X), dtype=np.uint32)
-                for t, src in enumerate(frames):
-                    got = self._guard(b, lambda: _oracle_decode_step(
-                        dec, src, dec.is_key_frame(src), X, Y))
-                    if got is None:  # quarantined: changed stays False
-                        continue
-                    sig[b, t], cap = got
-                    # None until the stream's first real frame: the plane
-                    # row stays as it is (changed gating never reads it)
-                    data = dec.previous_frame()
-                    if data is not None:
-                        payload[t] = data.reshape(Y, X)
-                    bts[t], mv[t], rect[t] = (cap["bts"], cap["mv"],
-                                              cap["rect"])
-                    changed[b, t] = cap["changed"]
-                (plane[b], bcode[b], rloc[b], mvk[b]) = sp_recon.prepare_bc(
-                    bts, mv, rect, payload, K=K)
+        with TRACE.span("jsp.entropy"):
+            if self._sp_native:
+                for b, frames in enumerate(chunk):
+                    dec = decs[b]
+                    for t, src in enumerate(frames):
+                        changed[b, t], sig[b, t] = self._guard(
+                            b, lambda: dec.decompress_bc(
+                                src, dec.is_key_frame(src), plane[b, t],
+                                mvk[b, t], bcode[b, t], rloc[b, t], K=K),
+                            default=(False, False))
+            else:
+                for b, frames in enumerate(chunk):
+                    dec = decs[b]
+                    bts = np.zeros((T, nb), dtype=np.int32)
+                    mv = np.zeros((T, nb, 2), dtype=np.int32)
+                    rect = np.zeros((T, nb, 4), dtype=np.int32)
+                    payload = np.zeros((T, Y, X), dtype=np.uint32)
+                    for t, src in enumerate(frames):
+                        got = self._guard(b, lambda: _oracle_decode_step(
+                            dec, src, dec.is_key_frame(src), X, Y))
+                        if got is None:  # quarantined: changed stays False
+                            continue
+                        sig[b, t], cap = got
+                        # None until the stream's first real frame: the plane
+                        # row stays as it is (changed gating never reads it)
+                        data = dec.previous_frame()
+                        if data is not None:
+                            payload[t] = data.reshape(Y, X)
+                        bts[t], mv[t], rect[t] = (cap["bts"], cap["mv"],
+                                                  cap["rect"])
+                        changed[b, t] = cap["changed"]
+                    (plane[b], bcode[b], rloc[b],
+                     mvk[b]) = sp_recon.prepare_bc(bts, mv, rect, payload,
+                                                   K=K)
         return self._bc_route(plane, bcode, rloc, mvk, changed, sig, start)
 
     def _bc_route(self, plane, bcode, rloc, mvk, changed, sig, start) -> dict:
@@ -895,20 +970,25 @@ class VideoIngestPipeline:
         if self.cfg.still_elision:
             return self._bc_elided(plane, bcode, rloc, mvk, changed, sig,
                                    init, start)
+        self._count_scan(changed.size)
         if self.cfg.mesh is not None:
-            frames = self._sharded_bc_step(plane, bcode, rloc, mvk, changed)
+            with TRACE.span("jsp.scan"):
+                frames = self._sharded_bc_step(plane, bcode, rloc, mvk,
+                                               changed)
             self._carry = frames[:, -1]
             return self._emit(frames, self._put(sig), start)
-        dev = [self._put(a) for a in (plane, bcode, rloc, mvk, changed)]
+        arrays = (plane, bcode, rloc, mvk, changed)
         if not self.cfg.emit_frames and self.cfg.emit_model_input:
-            carry, model = sp_recon.decode_batch_bc_model(
-                init, *dev, dtype=self._model_dtype,
-                downscale=self.cfg.model_downscale, bpp16=self._bpp16,
-                packed=self.cfg.model_packed)
+            with TRACE.span("jsp.scan"):
+                carry, model = sp_recon.decode_batch_bc_model(
+                    init, *map(self._put, arrays), dtype=self._model_dtype,
+                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
+                    packed=self.cfg.model_packed)
             self._carry = carry
             return {"start_frame": start, "significant": self._put(sig),
                     "model_input": model}
-        frames = sp_recon.decode_batch_bc(init, *dev)
+        with TRACE.span("jsp.scan"):
+            frames = sp_recon.decode_batch_bc(init, *map(self._put, arrays))
         self._carry = frames[:, -1]
         return self._emit(frames, self._put(sig), start)
 
@@ -921,36 +1001,41 @@ class VideoIngestPipeline:
         otherwise."""
         B = plane.shape[0]
         vi = self.info
-        (plc, bcc, rlc, mvkc), valid, outmap = sp_recon.compact_arrays_batch(
-            (plane, bcode, rloc, mvk), changed)
+        with TRACE.span("jsp.compact"):
+            (plc, bcc, rlc, mvkc), valid, outmap = \
+                sp_recon.compact_arrays_batch((plane, bcode, rloc, mvk),
+                                              changed)
         cpad = plc.shape[1]
         counts = valid.sum(axis=1).astype(np.int64)
         out = {"start_frame": start, "significant": self._put(sig)}
         if cpad == 0:  # all streams all-stills: nothing to decode
+            self._count_scan(0, changed)
             out["outmap"] = outmap
             if self.cfg.emit_frames:
                 out["frames_u32"] = torch.zeros(
                     (0, vi.height, vi.width), dtype=torch.int32,
                     device=self.device)
             return out
-        full_first = self.cfg.mesh is None and all(
-            counts[b] == 0
-            or (bool((bcc[b, 0] == 1).all())
-                and bool((rlc[b, 0] == (0, 0, 16, 16)).all()))
-            for b in range(B))
+        with TRACE.span("jsp.prep"):
+            full_first = self.cfg.mesh is None and all(
+                counts[b] == 0
+                or (bool((bcc[b, 0] == 1).all())
+                    and bool((rlc[b, 0] == (0, 0, 16, 16)).all()))
+                for b in range(B))
         self.stats["concat_windows" if full_first else "padded_windows"] += 1
         if full_first:
-            offsets = np.zeros(B, dtype=np.int64)
-            np.cumsum(counts[:-1], out=offsets[1:])
-
-            def cat(a):
-                return self._put(np.concatenate(
-                    [a[b, : counts[b]] for b in range(B)]))
-
-            outmap_flat = np.where(
-                outmap >= 0, outmap + offsets[:, None], -1).astype(np.int32)
-            frames = sp_recon.decode_sequence_bc_compact(
-                init[0], cat(plc), cat(bcc), cat(rlc), cat(mvkc))
+            with TRACE.span("jsp.prep"):
+                offsets = np.zeros(B, dtype=np.int64)
+                np.cumsum(counts[:-1], out=offsets[1:])
+                cats = [np.concatenate([a[b, : counts[b]] for b in range(B)])
+                        for a in (plc, bcc, rlc, mvkc)]
+                outmap_flat = np.where(
+                    outmap >= 0, outmap + offsets[:, None],
+                    -1).astype(np.int32)
+            self._count_scan(cats[0].shape[0], changed)
+            with TRACE.span("jsp.scan"):
+                frames = sp_recon.decode_sequence_bc_compact(
+                    init[0], *map(self._put, cats))
             ends = offsets + counts  # exclusive
             self._carry = torch.stack([
                 frames[int(ends[b]) - 1] if counts[b] else init[b]
@@ -961,16 +1046,20 @@ class VideoIngestPipeline:
             if self.cfg.emit_model_input:
                 out["model_input"] = self._model_tensors(frames)
             return out
-        outmap_flat = np.where(
-            outmap >= 0,
-            outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
-            -1).astype(np.int32)
+        with TRACE.span("jsp.prep"):
+            outmap_flat = np.where(
+                outmap >= 0,
+                outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
+                -1).astype(np.int32)
         out["outmap"] = outmap_flat
-        if self.cfg.mesh is not None:
-            frames = self._sharded_bc_step(plc, bcc, rlc, mvkc, valid)
-        else:
-            frames = sp_recon.decode_batch_bc(
-                init, *(self._put(a) for a in (plc, bcc, rlc, mvkc, valid)))
+        self._count_scan(valid.size, changed)
+        with TRACE.span("jsp.scan"):
+            if self.cfg.mesh is not None:
+                frames = self._sharded_bc_step(plc, bcc, rlc, mvkc, valid)
+            else:
+                frames = sp_recon.decode_batch_bc(
+                    init, *(self._put(a)
+                            for a in (plc, bcc, rlc, mvkc, valid)))
         self._carry = frames[:, -1]
         flat = frames.reshape((-1,) + frames.shape[2:])
         if self.cfg.emit_frames:
@@ -1068,26 +1157,29 @@ class VideoIngestPipeline:
         pc, mvk = buf["pc"], buf["mvk"]
         changed = np.zeros((B, G, T), dtype=bool)
         sig = np.zeros((B, G, T), dtype=bool)
-        for g, chunk in enumerate(chunks):
-            for b, frames in enumerate(chunk):
-                dec = decs[b]
-                if g > 0 and frames[0] and not dec.is_key_frame(frames[0]):
-                    raise ValueError(
-                        "gop>1 mesh requires keyframe-led windows "
-                        f"(window @{starts[g]} stream {b} starts mid-GOP); "
-                        "align IngestConfig.window with the keyframe cadence")
-                for t, src in enumerate(frames):
-                    if use_bc:
-                        step = lambda: dec.decompress_bc(
-                            src, dec.is_key_frame(src), pc[b, g, t],
-                            mvk[b, g, t], buf["bcode"][b, g, t],
-                            buf["rloc"][b, g, t], K=K)
-                    else:
-                        step = lambda: dec.decompress_kmv(
-                            src, dec.is_key_frame(src), pc[b, g, t],
-                            mvk[b, g, t], K=K, dirty=buf["dirty"][b, g, t])
-                    changed[b, g, t], sig[b, g, t] = self._guard(
-                        b, step, default=(False, False))
+        with TRACE.span("jsp.entropy"):
+            for g, chunk in enumerate(chunks):
+                for b, frames in enumerate(chunk):
+                    dec = decs[b]
+                    if (g > 0 and frames[0]
+                            and not dec.is_key_frame(frames[0])):
+                        raise ValueError(
+                            "gop>1 mesh requires keyframe-led windows "
+                            f"(window @{starts[g]} stream {b} starts "
+                            "mid-GOP); align IngestConfig.window with the "
+                            "keyframe cadence")
+                    for t, src in enumerate(frames):
+                        if use_bc:
+                            step = lambda: dec.decompress_bc(
+                                src, dec.is_key_frame(src), pc[b, g, t],
+                                mvk[b, g, t], buf["bcode"][b, g, t],
+                                buf["rloc"][b, g, t], K=K)
+                        else:
+                            step = lambda: dec.decompress_kmv(
+                                src, dec.is_key_frame(src), pc[b, g, t],
+                                mvk[b, g, t], K=K, dirty=buf["dirty"][b, g, t])
+                        changed[b, g, t], sig[b, g, t] = self._guard(
+                            b, step, default=(False, False))
         gstep = (self._sharded_step("_bcg_sharded", make_sp_decode_step_bc)
                  if use_bc else
                  self._sharded_step("_kmvg_sharded", make_sp_decode_step_kmv))
@@ -1098,10 +1190,17 @@ class VideoIngestPipeline:
                            device=self.device)
         if self._carry is not None:
             init[:, 0] = self._carry
-        if use_bc:
-            frames = gstep(init, pc, buf["bcode"], buf["rloc"], mvk, changed)
-        else:
-            frames = gstep(init, pc, mvk, changed)
+        real = B * sum(max(0, min(st + T, self.nframes) - st)
+                       for st in starts)
+        LOG.count("frames.timeline", real)
+        LOG.count("frames.scanned", changed.size)
+        LOG.count("rows.padded", changed.size - real)
+        with TRACE.span("jsp.scan"):
+            if use_bc:
+                frames = gstep(init, pc, buf["bcode"], buf["rloc"], mvk,
+                               changed)
+            else:
+                frames = gstep(init, pc, mvk, changed)
         n_real = len(starts)
         self._carry = frames[:, n_real - 1, -1]
         return [self._emit(frames[:, g], self._put(sig[:, g]), starts[g])
@@ -1142,26 +1241,27 @@ class VideoIngestPipeline:
         is_key0 = np.zeros(B, dtype=bool)
         frozen = set(self.quarantined)  # before this window
         t_fail = {}  # stream → the step whose decode failed in this window
-        for b, frames in enumerate(chunk):
-            dec = decs[b]
-            for t, src in enumerate(frames):
-                isk = dec.is_key_frame(src)  # safe byte peek
-                got = self._guard(b, lambda: _oracle_decode_step(
-                    dec, src, isk, X, Y))
-                if got is None:  # quarantined: changed stays False
-                    if b not in frozen:
-                        t_fail.setdefault(b, t)
-                    continue
-                sig[b, t], cap = got
-                data = dec.previous_frame()
-                if data is not None:
-                    payload[b, t] = data.reshape(Y, X)
-                if t == 0:
-                    is_key0[b] = bool(isk)
-                bts[b, t] = cap["bts"]
-                mv[b, t] = cap["mv"]
-                rect[b, t] = cap["rect"]
-                changed[b, t] = cap["changed"]
+        with TRACE.span("jsp.entropy"):
+            for b, frames in enumerate(chunk):
+                dec = decs[b]
+                for t, src in enumerate(frames):
+                    isk = dec.is_key_frame(src)  # safe byte peek
+                    got = self._guard(b, lambda: _oracle_decode_step(
+                        dec, src, isk, X, Y))
+                    if got is None:  # quarantined: changed stays False
+                        if b not in frozen:
+                            t_fail.setdefault(b, t)
+                        continue
+                    sig[b, t], cap = got
+                    data = dec.previous_frame()
+                    if data is not None:
+                        payload[b, t] = data.reshape(Y, X)
+                    if t == 0:
+                        is_key0[b] = bool(isk)
+                    bts[b, t] = cap["bts"]
+                    mv[b, t] = cap["mv"]
+                    rect[b, t] = cap["rect"]
+                    changed[b, t] = cap["changed"]
         # GOP-aligned init: a window-leading keyframe ships as the dense
         # scan init (its tiles would be the whole frame anyway)
         skip0 = bool(is_key0.all())
@@ -1186,10 +1286,6 @@ class VideoIngestPipeline:
             rest = all_copy(T - t_end, got[2].shape[1])
             return tuple(np.concatenate([a, r]) for a, r in zip(got, rest))
 
-        preps = [prep(b) for b in range(B)]
-        m_max = max(1, max(p[2].shape[1] for p in preps))
-        m_pad = 1 << (m_max - 1).bit_length()
-
         def padM(tiles, tyx):
             # prepare_kmv_sparse guarantees M >= 1 with final-content pad
             # tiles, so repeating column 0 is always a correct no-op rewrite
@@ -1200,16 +1296,22 @@ class VideoIngestPipeline:
                                    1),
                     np.concatenate([tyx, np.repeat(tyx[:, :1], reps, 1)], 1))
 
-        bc = np.stack([p[0] for p in preps])
-        mvk = np.stack([p[1] for p in preps])
-        padded = [padM(p[2], p[3]) for p in preps]
-        tiles = np.stack([q[0] for q in padded])
-        tyx = np.stack([q[1] for q in padded])
-        init = (self._put(payload[:, 0] & np.uint32(0x00FFFFFF)) if skip0
-                else self._carry_init(B))
-        frames = sp_recon.decode_batch_kmv_sparse(
-            init, self._put(bc), self._put(mvk), self._put(tiles),
-            self._put(tyx), self._put(changed[:, t0:]))
+        with TRACE.span("jsp.prep"):
+            preps = [prep(b) for b in range(B)]
+            m_max = max(1, max(p[2].shape[1] for p in preps))
+            m_pad = 1 << (m_max - 1).bit_length()
+            bc = np.stack([p[0] for p in preps])
+            mvk = np.stack([p[1] for p in preps])
+            padded = [padM(p[2], p[3]) for p in preps]
+            tiles = np.stack([q[0] for q in padded])
+            tyx = np.stack([q[1] for q in padded])
+        self._count_scan(changed[:, t0:].size, first=t0)
+        with TRACE.span("jsp.scan"):
+            init = (self._put(payload[:, 0] & np.uint32(0x00FFFFFF))
+                    if skip0 else self._carry_init(B))
+            frames = sp_recon.decode_batch_kmv_sparse(
+                init, self._put(bc), self._put(mvk), self._put(tiles),
+                self._put(tyx), self._put(changed[:, t0:]))
         if skip0:
             frames = torch.cat([init[:, None], frames], dim=1)
         self._carry = frames[:, -1]
@@ -1274,16 +1376,17 @@ class VideoIngestPipeline:
                 if chg:
                     m_used_arr[b, t] = max(1, m_used)
 
-        if B > 1:
-            # the native calls release the GIL; each thread owns disjoint
-            # buffer rows
-            from concurrent.futures import ThreadPoolExecutor
-            import os as _os
+        with TRACE.span("jsp.entropy"):
+            if B > 1:
+                # the native calls release the GIL; each thread owns
+                # disjoint buffer rows
+                from concurrent.futures import ThreadPoolExecutor
+                import os as _os
 
-            with ThreadPoolExecutor(min(B, _os.cpu_count() or 1)) as ex:
-                list(ex.map(host_decode_stream, range(B)))
-        else:
-            host_decode_stream(0)
+                with ThreadPoolExecutor(min(B, _os.cpu_count() or 1)) as ex:
+                    list(ex.map(host_decode_stream, range(B)))
+            else:
+                host_decode_stream(0)
         if skip0 and self.quarantined:
             # a stream whose window-leading KEYFRAME failed (or that was
             # quarantined before this window) starts from its carry, not
@@ -1301,35 +1404,39 @@ class VideoIngestPipeline:
         m_pad = min(max(m_pad, getattr(self, "_m_bucket", 1)), nb)
         self._m_bucket = m_pad
         init = (self._put(buf["init"]) if skip0 else self._carry_init(B))
-        # ragged tile transfer: only real tiles (+1 pad row per changed
-        # frame)
-        flat_rows = []
-        tile_idx = np.zeros((B, T - t0, m_pad), dtype=np.int32)
-        off = 0
-        for b in range(B):
-            for t in range(t0, T):
-                if not changed[b, t]:
-                    continue
-                take = min(int(m_used_arr[b, t]) + 1, nb)  # +1 = pad row
-                flat_rows.append(tiles[b, t, :take].reshape(take, 256))
-                j = np.minimum(np.arange(m_pad), take - 1)
-                tile_idx[b, t - t0] = off + j
-                off += take
-        flat = (np.concatenate(flat_rows, axis=0) if flat_rows
-                else np.zeros((1, 256), np.uint32))
-        if self.cfg.sparse_lane_payload and flat.shape[0] > 1:
-            # tile pixels cross the link rANS-coded and are lane-decoded on
-            # the device
-            from ..kernels import lane_transport as _lt
+        with TRACE.span("jsp.prep"):
+            # ragged tile transfer: only real tiles (+1 pad row per changed
+            # frame)
+            flat_rows = []
+            tile_idx = np.zeros((B, T - t0, m_pad), dtype=np.int32)
+            off = 0
+            for b in range(B):
+                for t in range(t0, T):
+                    if not changed[b, t]:
+                        continue
+                    take = min(int(m_used_arr[b, t]) + 1, nb)  # +1 = pad row
+                    flat_rows.append(tiles[b, t, :take].reshape(take, 256))
+                    j = np.minimum(np.arange(m_pad), take - 1)
+                    tile_idx[b, t - t0] = off + j
+                    off += take
+            flat = (np.concatenate(flat_rows, axis=0) if flat_rows
+                    else np.zeros((1, 256), np.uint32))
+        self._count_scan(changed[:, t0:].size, first=t0)
+        with TRACE.span("jsp.scan"):
+            if self.cfg.sparse_lane_payload and flat.shape[0] > 1:
+                # tile pixels cross the link rANS-coded and are lane-decoded
+                # on the device
+                from ..kernels import lane_transport as _lt
 
-            pack = _lt.encode_tiles(flat & np.uint32(0x00FFFFFF))
-            flat_dev = _lt.decode_tiles_device(pack, self.device)
-        else:
-            flat_dev = self._put(flat)
-        frames = sp_recon.decode_batch_kmv_sparse_ragged(
-            init, self._put(bc[:, t0:]), self._put(mvk[:, t0:]), flat_dev,
-            self._put(tile_idx), self._put(tyx[:, t0:, :m_pad]),
-            self._put(changed[:, t0:]))
+                with TRACE.span("jsp.prep"):
+                    pack = _lt.encode_tiles(flat & np.uint32(0x00FFFFFF))
+                flat_dev = _lt.decode_tiles_device(pack, self.device)
+            else:
+                flat_dev = self._put(flat)
+            frames = sp_recon.decode_batch_kmv_sparse_ragged(
+                init, self._put(bc[:, t0:]), self._put(mvk[:, t0:]),
+                flat_dev, self._put(tile_idx),
+                self._put(tyx[:, t0:, :m_pad]), self._put(changed[:, t0:]))
         if skip0:
             frames = torch.cat([init[:, None], frames], dim=1)
         self._carry = frames[:, -1]
@@ -1347,36 +1454,42 @@ class VideoIngestPipeline:
                else None)
         B, T = len(chunk), self.cfg.window
         nb = (X >> 2) * (Y >> 2)
-        bt = np.zeros((B, T, nb), dtype=np.uint8)
-        sel = np.zeros((B, T, nb, 16), dtype=np.uint8)
-        col = np.zeros((B, T, nb, 8), dtype=np.uint32)
-        chg = np.zeros((B, T), dtype=bool)
+        with TRACE.span("jsp.prep"):
+            bt = np.zeros((B, T, nb), dtype=np.uint8)
+            sel = np.zeros((B, T, nb, 16), dtype=np.uint8)
+            col = np.zeros((B, T, nb, 8), dtype=np.uint32)
+            chg = np.zeros((B, T), dtype=bool)
         from .. import native as _native
 
         parse = (_native.native_msv1_parse if _native.available()
                  else parse_commands)
-        for b, frames in enumerate(chunk):
-            for t, src in enumerate(frames):
-                # a malformed MSV1 stream quarantines its slot (frozen at
-                # the last good frame) instead of failing the batch
-                got = self._guard(b, lambda: parse(src, X, Y, pal=pal))
-                if got is None:
-                    continue
-                bt[b, t], sel[b, t], col[b, t], chg[b, t] = got
+        with TRACE.span("jsp.entropy"):
+            for b, frames in enumerate(chunk):
+                for t, src in enumerate(frames):
+                    # a malformed MSV1 stream quarantines its slot (frozen
+                    # at the last good frame) instead of failing the batch
+                    got = self._guard(b, lambda: parse(src, X, Y, pal=pal))
+                    if got is None:
+                        continue
+                    bt[b, t], sel[b, t], col[b, t], chg[b, t] = got
         init = self._carry_init(B)
         il = self.cfg.insignificant_lines
-        sel = msv1_paint.sel_to_plane(sel, Y, X)  # the device's plane order
-        if self.cfg.mesh is not None:
-            frames, signif = self._sharded_msv1_window(init, start, bt, sel,
-                                                       col, chg)
-        else:
-            # as the reference: valid when the window is not the stream's
-            # first
-            valid = torch.full((B,), start > 0, dtype=torch.bool,
-                               device=self.device)
-            frames, signif = msv1_paint.decode_batch(
-                init, valid, self._put(bt), self._put(sel), self._put(col),
-                self._put(chg), (il + 3) >> 2, il, X // 4)
+        with TRACE.span("jsp.prep"):
+            sel = msv1_paint.sel_to_plane(sel, Y, X)  # the device's order
+        self._count_scan(chg.size)
+        with TRACE.span("jsp.scan"):
+            if self.cfg.mesh is not None:
+                frames, signif = self._sharded_msv1_window(init, start, bt,
+                                                           sel, col, chg)
+            else:
+                # as the reference: valid when the window is not the
+                # stream's first
+                valid = torch.full((B,), start > 0, dtype=torch.bool,
+                                   device=self.device)
+                frames, signif = msv1_paint.decode_batch(
+                    init, valid, self._put(bt), self._put(sel),
+                    self._put(col), self._put(chg), (il + 3) >> 2, il,
+                    X // 4)
         self._carry = frames[:, -1]
         return self._emit(frames, signif, start)
 
@@ -1474,36 +1587,38 @@ class VideoIngestPipeline:
         [B, T] batching keeps one timeline); frame_range starts at the
         latest window ≤ t0 that is a restart in every stream (the
         container's keyframe unit) and ends once t1 is covered."""
-        Tw = self.containers[0].window
-        n_windows = max(len(c.windows) for c in self.containers)
-        Ts: list[int] = []
-        for wj in range(n_windows):
-            tlen = None
-            for c in self.containers:
-                if wj < len(c.windows):
-                    if tlen is None:
-                        tlen = c.windows[wj].T
-                    elif c.windows[wj].T != tlen:
-                        raise ValueError(
-                            "lane batch streams have mismatched window "
-                            f"boundaries at window {wj}")
-            Ts.append(Tw if tlen is None else tlen)
-        bases = np.concatenate([[0], np.cumsum(Ts)]).astype(int)
-        wi0, wi_end = 0, n_windows
-        if self.cfg.frame_range is not None:
-            t0, t1 = self.cfg.frame_range
-            tt0 = max(0, min(int(t0), self.nframes - 1))
-            want = max(0, int(np.searchsorted(bases, tt0, side="right")) - 1)
-            wi0 = 0
-            for wi in range(want, -1, -1):
-                if all(wi < len(c.windows) and c.windows[wi].restart
-                       for c in self.containers):
-                    wi0 = wi
-                    break
-            tt1 = max(t0 + 1, int(t1))
-            wi_end = min(n_windows,
-                         int(np.searchsorted(bases, tt1, side="left")))
-        return Ts, bases, wi0, wi_end
+        with TRACE.span("jsp.demux"):
+            Tw = self.containers[0].window
+            n_windows = max(len(c.windows) for c in self.containers)
+            Ts: list[int] = []
+            for wj in range(n_windows):
+                tlen = None
+                for c in self.containers:
+                    if wj < len(c.windows):
+                        if tlen is None:
+                            tlen = c.windows[wj].T
+                        elif c.windows[wj].T != tlen:
+                            raise ValueError(
+                                "lane batch streams have mismatched window "
+                                f"boundaries at window {wj}")
+                Ts.append(Tw if tlen is None else tlen)
+            bases = np.concatenate([[0], np.cumsum(Ts)]).astype(int)
+            wi0, wi_end = 0, n_windows
+            if self.cfg.frame_range is not None:
+                t0, t1 = self.cfg.frame_range
+                tt0 = max(0, min(int(t0), self.nframes - 1))
+                want = max(0, int(np.searchsorted(bases, tt0,
+                                                  side="right")) - 1)
+                wi0 = 0
+                for wi in range(want, -1, -1):
+                    if all(wi < len(c.windows) and c.windows[wi].restart
+                           for c in self.containers):
+                        wi0 = wi
+                        break
+                tt1 = max(t0 + 1, int(t1))
+                wi_end = min(n_windows,
+                             int(np.searchsorted(bases, tt1, side="left")))
+            return Ts, bases, wi0, wi_end
 
     def _lane_group(self, wi: int, ts: list, raw: bool) -> dict:
         """Windows wi .. wi+G-1 (G = len(ts), their true lengths) of every
@@ -1623,95 +1738,118 @@ class VideoIngestPipeline:
 
         pending = None
         while wi < wi_end:
-            # greedy group: extend while the next window is carry-free
-            G = 1
-            while (G < gop_size and wi + G < wi_end
-                   and all_restart(wi + G)):
-                G += 1
-            ts = Ts[wi: wi + G]
-            total_real = sum(ts)
-            h = self._lane_group(wi, ts, raw)
-            # every entry starts from its stream's carry (restart entries
-            # ignore it; absent entries pass it through)
-            init = self._carry_init(B)
-            if G > 1:
-                init = init.repeat_interleave(G, dim=0)
-            # rans mode: window-leading keyframes ride as raw init planes
-            # (the scan's frame 0 is an all-copy passthrough): those
-            # entries start from their plane, on the device
-            if h["init"] is not None:
-                mask = np.array([p is not None for p in h["init"]])
-                planes = np.stack([np.zeros((Y, X), np.uint32) if p is None
-                                   else p for p in h["init"]])
-                init = torch.where(
-                    self._put(self._local_rows(mask, B, G))[:, None, None],
-                    self._put(self._local_rows(planes, B, G)), init)
-            btype, rect, mvk, row_idx = (h[k] for k in (
-                "btype", "rect", "mvk", "row_idx"))
-            changed = h["changed"]
-            # still-elision: stills never enter the lane scan (the flat row
-            # stack + outmap contract of _kmv_elided; -1 = the window's
-            # carry-in frame)
-            outmap = None
-            if self.cfg.still_elision:
-                (btype, rect, mvk, row_idx), changed, outmap = \
-                    sp_recon.compact_arrays_batch(
-                        (btype, rect, mvk, row_idx), changed)
-                cpad = btype.shape[1]
-                om = np.where(
-                    outmap >= 0,
-                    outmap + (np.arange(B * G, dtype=np.int32)
-                              * cpad)[:, None],
-                    -1).astype(np.int32)
-                # ragged windows: keep only each window's real frames
-                outmap = np.stack([
-                    np.concatenate([om[b * G + g, : ts[g]]
-                                    for g in range(G)])
-                    for b in range(B)])
-            if changed.shape[1] == 0:  # all streams all-stills
-                out = {"start_frame": int(bases[wi]),
-                       "significant": self._put(h["sig"]),
-                       "outmap": outmap,
-                       "frames_u32": torch.zeros((0, Y, X), dtype=torch.int32,
-                                                 device=self.device)}
-            else:
-                cmds = (btype, rect, mvk, h["row_table"], row_idx, changed)
-                data = ((h["payload"],) if raw else
-                        tuple(h[k] for k in ("refills", "states", "freq")))
-                if mesh is not None:
-                    frames = lane_recon.make_lane_decode_step(
-                        mesh, h["u_pad"], raw=raw,
-                        axes=("dp", "gop") if G > 1 else ("dp",))(
-                            init, *data, *cmds)
-                elif raw:
-                    frames = lane_recon.decode_batch_raw(
-                        init, *map(self._put, data + cmds))
+            TRACE.poll()
+            with TRACE.span("jsp.window", (self._serial, int(bases[wi]))):
+                # greedy group: extend while the next window is carry-free
+                G = 1
+                while (G < gop_size and wi + G < wi_end
+                       and all_restart(wi + G)):
+                    G += 1
+                ts = Ts[wi: wi + G]
+                total_real = sum(ts)
+                LOG.count("frames.timeline", B * total_real)
+                with TRACE.span("jsp.prep"):
+                    h = self._lane_group(wi, ts, raw)
+                # every entry starts from its stream's carry (restart
+                # entries ignore it; absent entries pass it through)
+                init = self._carry_init(B)
+                if G > 1:
+                    init = init.repeat_interleave(G, dim=0)
+                # rans mode: window-leading keyframes ride as raw init
+                # planes (the scan's frame 0 is an all-copy passthrough):
+                # those entries start from their plane, on the device
+                if h["init"] is not None:
+                    with TRACE.span("jsp.prep"):
+                        mask = np.array([p is not None for p in h["init"]])
+                        planes = np.stack([
+                            np.zeros((Y, X), np.uint32) if p is None else p
+                            for p in h["init"]])
+                        init = torch.where(
+                            self._put(self._local_rows(mask, B, G))[
+                                :, None, None],
+                            self._put(self._local_rows(planes, B, G)), init)
+                btype, rect, mvk, row_idx = (h[k] for k in (
+                    "btype", "rect", "mvk", "row_idx"))
+                changed = h["changed"]
+                # still-elision: stills never enter the lane scan (the flat
+                # row stack + outmap contract of _kmv_elided; -1 = the
+                # window's carry-in frame)
+                outmap = None
+                if self.cfg.still_elision:
+                    with TRACE.span("jsp.compact"):
+                        (btype, rect, mvk, row_idx), changed, outmap = \
+                            sp_recon.compact_arrays_batch(
+                                (btype, rect, mvk, row_idx), changed)
+                    with TRACE.span("jsp.prep"):
+                        cpad = btype.shape[1]
+                        om = np.where(
+                            outmap >= 0,
+                            outmap + (np.arange(B * G, dtype=np.int32)
+                                      * cpad)[:, None],
+                            -1).astype(np.int32)
+                        # ragged windows: keep only each window's real
+                        # frames
+                        outmap = np.stack([
+                            np.concatenate([om[b * G + g, : ts[g]]
+                                            for g in range(G)])
+                            for b in range(B)])
+                    real = int(changed.sum())
+                    LOG.count("frames.elided", B * total_real - real)
+                else:  # the real frames of the windows present
+                    real = sum(c.windows[wi + g].T for c in self.containers
+                               for g in range(G) if wi + g < len(c.windows))
+                LOG.count("frames.scanned", changed.size)
+                LOG.count("rows.padded", changed.size - real)
+                if changed.shape[1] == 0:  # all streams all-stills
+                    out = {"start_frame": int(bases[wi]),
+                           "significant": self._put(h["sig"]),
+                           "outmap": outmap,
+                           "frames_u32": torch.zeros(
+                               (0, Y, X), dtype=torch.int32,
+                               device=self.device)}
                 else:
-                    frames = lane_recon.decode_batch_lane(
-                        init, *map(self._put, data + cmds), h["u_pad"])
-                # a stream's carry: its last entry's last frame
-                self._carry = frames[G - 1:: G, -1]
-                out = {"start_frame": int(bases[wi]),
-                       "significant": self._put(h["sig"])}
-                if outmap is not None:
-                    out["outmap"] = outmap
-                    flat = frames.reshape((-1,) + frames.shape[2:])
-                    if self.cfg.emit_frames:
-                        out["frames_u32"] = flat
-                    if self.cfg.emit_model_input:
-                        out["model_input"] = self._model_tensors(flat)
-                else:
-                    # [B*G, Tpad, ...] → [B, G*T, ...]: stream-major entries
-                    # read as one window; ragged (keyframe-snapped) windows
-                    # keep only their real frames
-                    if G == 1:
-                        frames = frames[:, :ts[0]]
+                    cmds = (btype, rect, mvk, h["row_table"], row_idx,
+                            changed)
+                    data = ((h["payload"],) if raw else
+                            tuple(h[k] for k in ("refills", "states",
+                                                 "freq")))
+                    with TRACE.span("jsp.scan"):
+                        if mesh is not None:
+                            frames = lane_recon.make_lane_decode_step(
+                                mesh, h["u_pad"], raw=raw,
+                                axes=("dp", "gop") if G > 1 else ("dp",))(
+                                    init, *data, *cmds)
+                        elif raw:
+                            frames = lane_recon.decode_batch_raw(
+                                init, *map(self._put, data + cmds))
+                        else:
+                            frames = lane_recon.decode_batch_lane(
+                                init, *map(self._put, data + cmds),
+                                h["u_pad"])
+                    # a stream's carry: its last entry's last frame
+                    self._carry = frames[G - 1:: G, -1]
+                    out = {"start_frame": int(bases[wi]),
+                           "significant": self._put(h["sig"])}
+                    if outmap is not None:
+                        out["outmap"] = outmap
+                        flat = frames.reshape((-1,) + frames.shape[2:])
+                        if self.cfg.emit_frames:
+                            out["frames_u32"] = flat
+                        if self.cfg.emit_model_input:
+                            out["model_input"] = self._model_tensors(flat)
                     else:
-                        frames = torch.cat([frames[g:: G, :ts[g]]
-                                            for g in range(G)], dim=1)
-                    out["frames_u32"] = frames
-                    if self.cfg.emit_model_input:
-                        out["model_input"] = self._model_tensors(frames)
+                        # [B*G, Tpad, ...] → [B, G*T, ...]: stream-major
+                        # entries read as one window; ragged
+                        # (keyframe-snapped) windows keep only their real
+                        # frames
+                        if G == 1:
+                            frames = frames[:, :ts[0]]
+                        else:
+                            frames = torch.cat([frames[g:: G, :ts[g]]
+                                                for g in range(G)], dim=1)
+                        out["frames_u32"] = frames
+                        if self.cfg.emit_model_input:
+                            out["model_input"] = self._model_tensors(frames)
             if pending is not None:
                 yield pending
             pending = out
@@ -1731,13 +1869,15 @@ class VideoIngestPipeline:
     def _model_tensors(self, frames):
         """Frames → the configured model product (unpacked tensors or the
         packed-ds2 plane)."""
-        if self.cfg.model_packed:
-            if self.cfg.model_downscale != 2:
-                raise ValueError("model_packed requires model_downscale == 2")
-            return ds2_packed_output(frames)
-        return to_model_input(
-            frames, dtype=self._model_dtype,
-            downscale=self.cfg.model_downscale, bpp16=self._bpp16)
+        with TRACE.span("jsp.epilogue"):
+            if self.cfg.model_packed:
+                if self.cfg.model_downscale != 2:
+                    raise ValueError(
+                        "model_packed requires model_downscale == 2")
+                return ds2_packed_output(frames)
+            return to_model_input(
+                frames, dtype=self._model_dtype,
+                downscale=self.cfg.model_downscale, bpp16=self._bpp16)
 
     def _emit(self, frames, signif, start) -> dict:
         out = {"start_frame": start, "frames_u32": frames,

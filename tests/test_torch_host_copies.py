@@ -89,7 +89,9 @@ REPAIRS = {
     # old stream's (reference host fault 2)
     "player.py": [(r"^        # fresh playback state",
                    r"^        if self\.video_info is None:$")],
-    # device_trace used jax.profiler; nothing of the port calls it
+    # the reference's device_trace (jax.profiler) is not ported; the tail
+    # after LOG holds the port's tracer instead, TRACE, the ingest
+    # pipeline's jsp.* spans on torch.profiler and its counters
     "utils/logging.py": [(r"^TPU-era extensions", r'^"""$'),
                          (r"^LOG = Log\(\)", None)],
     # derive_window reads `restart` from the derived commands, the parser's
