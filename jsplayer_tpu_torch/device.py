@@ -52,6 +52,17 @@ def cuda_launch_checks(what: str, *planes: torch.Tensor) -> None:
                             f"{t.dtype}")
 
 
+def _host_words(a: np.ndarray) -> torch.Tensor:
+    """An upload's source: `a` made contiguous, u32 as int32 bits, wrapped
+    without a copy, and counted (``upload.bytes``, ``upload.calls``)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    LOG.count("upload.bytes", a.nbytes)
+    LOG.count("upload.calls")
+    return torch.from_numpy(a)
+
+
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """Host→device upload of a numpy array (u32 planes become int32 bit
     views).  A blocking copy: the caller may rewrite `a` as soon as this
@@ -59,9 +70,15 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     next window without an event wait.  Counts ``upload.bytes`` and
     ``upload.calls`` (LOG) and is the ``jsp.upload`` span (TRACE)."""
     with TRACE.span("jsp.upload"):
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        LOG.count("upload.bytes", a.nbytes)
-        LOG.count("upload.calls")
-        return torch.from_numpy(a).to(device)
+        return _host_words(a).to(device)
+
+
+def to_device_into(a: np.ndarray, out: torch.Tensor) -> torch.Tensor:
+    """Host→device upload of a numpy array into `out`, a contiguous slice
+    of an existing device tensor of `a`'s shape (u32 planes into int32 bit
+    views).  Blocking and pageable like to_device, and counted and spanned
+    the same way; returns `out`."""
+    if tuple(out.shape) != a.shape:
+        raise ValueError(f"to_device_into: {a.shape} into {tuple(out.shape)}")
+    with TRACE.span("jsp.upload"):
+        return out.copy_(_host_words(a))

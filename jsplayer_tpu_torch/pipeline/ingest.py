@@ -62,6 +62,7 @@ imports jax at the top, which this package never does.
 from __future__ import annotations
 
 import itertools
+import sys
 from dataclasses import dataclass, replace
 from typing import Iterator, Optional, Sequence
 
@@ -71,7 +72,7 @@ import torch
 from ..core.loader import DataLoaderAVISeq
 from ..core.source import ByteSource
 from ..core.types import CodecType, VideoInfo
-from ..device import resolve_device, to_device, torch_to_u32
+from ..device import resolve_device, to_device, to_device_into, torch_to_u32
 from ..codecs.msvideo1 import palette_to_u32, parse_commands
 from ..kernels import msv1_paint, sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
@@ -112,6 +113,57 @@ def carry_from_numpy(frames: np.ndarray, device) -> torch.Tensor:
 def carry_to_numpy(carry: torch.Tensor) -> np.ndarray:
     """The port's device carry → [B, Y, X] u32 on the host."""
     return torch_to_u32(carry)
+
+
+# byte of a u32 word that holds bits 24-31 (the kmv word's ptype and slot)
+_TOP_BYTE = 3 if sys.byteorder == "little" else 0
+
+
+def _full_frame(plane: np.ndarray) -> bool:
+    """Whether a kmv paycode plane [Y, X] u32 overwrites the whole frame:
+    every word's ptype (bits 24-25) is 1, read on a uint8 view of the
+    words' top bytes."""
+    top = plane.view(np.uint8)[..., _TOP_BYTE::4]
+    return bool(((top & 3) == 1).all())
+
+
+def upload_changed_rows(pc: np.ndarray, rows: np.ndarray,
+                        counts: np.ndarray, device,
+                        cpad: int | None = None) -> torch.Tensor:
+    """Place each stream's changed paycode planes pc[b, rows[b, :counts[b]]]
+    from the host window pc [B, T, Y, X] u32 into one device stack, one
+    upload (device.to_device_into) a run of consecutive frames; no host
+    copy of a plane is made.  cpad None: the CONCAT stack [sum(counts), Y,
+    X], streams back to back; else the PADDED stack [B, cpad, Y, X], its
+    pad rows [b, counts[b]:] zeroed on the device.  int32 bit views;
+    counts elision.direct_rows and elision.direct_runs."""
+    B, plane = pc.shape[0], pc.shape[2:]
+    counts = np.asarray(counts, dtype=np.int64)
+    if cpad is None:
+        out = torch.empty((int(counts.sum()),) + plane, dtype=torch.int32,
+                          device=device)
+        flat, base = out, np.cumsum(counts) - counts
+    else:
+        out = torch.empty((B, cpad) + plane, dtype=torch.int32,
+                          device=device)
+        for b in range(B):
+            if counts[b] < cpad:
+                out[b, int(counts[b]):].zero_()
+        flat, base = out.view((B * cpad,) + plane), np.arange(B) * cpad
+    runs = 0
+    for b in range(B):
+        idx = rows[b, : counts[b]]
+        if not len(idx):
+            continue
+        # run boundaries: where the next changed frame is not t + 1
+        cuts = np.flatnonzero(np.diff(idx) != 1) + 1
+        for s, e in zip([0, *cuts], [*cuts, len(idx)]):
+            t0, o = int(idx[s]), int(base[b] + s)
+            to_device_into(pc[b, t0:t0 + e - s], flat[o:o + e - s])
+            runs += 1
+    LOG.count("elision.direct_rows", int(counts.sum()))
+    LOG.count("elision.direct_runs", runs)
+    return out
 
 
 def _trim_window(out: dict, n: int) -> dict:
@@ -813,13 +865,21 @@ class VideoIngestPipeline:
           * PADDED — otherwise (and always under a mesh), the per-stream
             masked scans of bucketed length Cpad run as one batched scan
             (or shard over the mesh's dp axis) and the [B, Cpad] result is
-            flattened with per-stream offsets."""
-        B = pc.shape[0]
+            flattened with per-stream offsets.
+
+        On one device the compaction plans on frame indices and the changed
+        planes go straight from `pc` into the device stack
+        (upload_changed_rows); a mesh compacts the planes on the host for
+        its slots."""
+        B, T = pc.shape[:2]
         vi = self.info
+        direct = self.cfg.mesh is None
         with TRACE.span("jsp.compact"):
-            pcc, mvkc, valid, outmap = sp_recon.compact_changed_batch(
-                pc, mvk, changed)
-        cpad = pcc.shape[1]
+            # rows: [B, Cpad] frame indices (one device) or planes (mesh)
+            rows, mvkc, valid, outmap = sp_recon.compact_changed_batch(
+                np.tile(np.arange(T), (B, 1)) if direct else pc, mvk,
+                changed)
+        cpad = rows.shape[1]
         counts = valid.sum(axis=1).astype(np.int64)
         out = {"start_frame": start, "significant": self._put(sig)}
         if cpad == 0:  # all streams all-stills: nothing to decode
@@ -832,9 +892,8 @@ class VideoIngestPipeline:
             return out
 
         with TRACE.span("jsp.prep"):
-            full_first = self.cfg.mesh is None and all(
-                counts[b] == 0
-                or bool((((pcc[b, 0] >> 24) & 3) == 1).all())
+            full_first = direct and all(
+                counts[b] == 0 or _full_frame(pc[b, rows[b, 0]])
                 for b in range(B))
         self.stats["concat_windows" if full_first else "padded_windows"] += 1
         if full_first:
@@ -842,20 +901,19 @@ class VideoIngestPipeline:
             with TRACE.span("jsp.prep"):
                 offsets = np.zeros(B, dtype=np.int64)
                 np.cumsum(counts[:-1], out=offsets[1:])
-                cat_pc = np.concatenate(
-                    [pcc[b, : counts[b]] for b in range(B)] or
-                    [np.zeros((0,) + pcc.shape[2:], pcc.dtype)])
                 cat_mv = np.concatenate(
                     [mvkc[b, : counts[b]] for b in range(B)])
                 outmap_flat = np.where(
                     outmap >= 0, outmap + offsets[:, None],
                     -1).astype(np.int32)
-            self._count_scan(cat_pc.shape[0], changed)
+            self._count_scan(int(counts.sum()), changed)
             # (fused model-only emission still decodes the frame stack
             # here: the per-stream carries come from frame rows)
             with TRACE.span("jsp.scan"):
                 frames = sp_recon.decode_sequence_kmv_compact(
-                    init[0], self._put(cat_pc), self._put(cat_mv))
+                    init[0], upload_changed_rows(pc, rows, counts,
+                                                 self.device),
+                    self._put(cat_mv))
             ends = offsets + counts  # exclusive
             self._carry = torch.stack([
                 frames[int(ends[b]) - 1] if counts[b] else init[b]
@@ -875,12 +933,13 @@ class VideoIngestPipeline:
                 -1).astype(np.int32)
         out["outmap"] = outmap_flat
         self._count_scan(valid.size, changed)
-        if (self.cfg.mesh is None and not self.cfg.emit_frames
-                and self.cfg.emit_model_input):
+        if direct and not self.cfg.emit_frames and self.cfg.emit_model_input:
             # fused: the compacted masked scan emits ONLY model tensors
             with TRACE.span("jsp.scan"):
                 carry, model = sp_recon.decode_batch_kmv_model(
-                    init, self._put(pcc), self._put(mvkc), self._put(valid),
+                    init, upload_changed_rows(pc, rows, counts, self.device,
+                                              cpad),
+                    self._put(mvkc), self._put(valid),
                     dtype=self._model_dtype,
                     downscale=self.cfg.model_downscale, bpp16=self._bpp16,
                     packed=self.cfg.model_packed)
@@ -888,11 +947,13 @@ class VideoIngestPipeline:
             out["model_input"] = model.reshape((B * cpad,) + model.shape[2:])
             return out
         with TRACE.span("jsp.scan"):
-            if self.cfg.mesh is not None:
-                frames = self._sharded_kmv_step(pcc, mvkc, valid)
+            if not direct:
+                frames = self._sharded_kmv_step(rows, mvkc, valid)
             else:
                 frames = sp_recon.decode_batch_kmv(
-                    init, self._put(pcc), self._put(mvkc), self._put(valid))
+                    init, upload_changed_rows(pc, rows, counts, self.device,
+                                              cpad),
+                    self._put(mvkc), self._put(valid))
         self._carry = frames[:, -1]
         flat = frames.reshape((-1,) + frames.shape[2:])
         if self.cfg.emit_frames:

@@ -131,6 +131,45 @@ def test_ingest_cuda_matches_cpu(dev, emit_frames):
                 np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
 
 
+@pytest.mark.parametrize("layout", ["concat", "padded"])
+def test_changed_rows_upload_matches_the_host_stack(dev, layout):
+    """The elided route's device stack, placed run by run from a window of
+    random 1080p paycode planes, equals to_device of compact_changed_batch's
+    host stack bit for bit (CONCAT: its real rows back to back), the pad
+    rows zero though the allocator hands out dirty memory."""
+    from jsplayer_tpu_torch.device import to_device
+    from jsplayer_tpu_torch.kernels.sp_recon import compact_changed_batch
+    from jsplayer_tpu_torch.pipeline.ingest import upload_changed_rows
+
+    B, T, Y, X, K = 3, 6, 1080, 1920, 2
+    rng = np.random.default_rng(18)
+    pc = rng.integers(0, 1 << 32, (B, T, Y, X), dtype=np.uint32)
+    mvk = rng.integers(-64, 64, (B, T, K, 2)).astype(np.int32)
+    changed = np.array([[1, 1, 0, 1, 0, 1], [0, 0, 0, 0, 0, 0],
+                        [1, 1, 1, 1, 1, 0]], dtype=bool)
+    pcc, _, valid, _ = compact_changed_batch(pc, mvk, changed)
+    rows, _, _, _ = compact_changed_batch(np.tile(np.arange(T), (B, 1)),
+                                          mvk, changed)
+    counts = valid.sum(axis=1)
+    if layout == "concat":
+        want = to_device(np.concatenate([pcc[b, :counts[b]]
+                                         for b in range(B)]), dev)
+        cpad = None
+    else:
+        want, cpad = to_device(pcc, dev), pcc.shape[1]
+    # dirty blocks for torch.empty to reuse
+    junk = torch.full((2 * want.numel(),), -1, dtype=torch.int32,
+                      device=dev)
+    del junk
+    got = upload_changed_rows(pc, rows, counts, dev, cpad)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.device == want.device
+    assert torch.equal(got, want)
+    if cpad is not None:
+        for b in range(B):
+            assert not got[b, counts[b]:].any()
+
+
 def block_commands(B, Y, X, seed, mv_range):
     """Random SP block commands for one step of B streams (bts -1..7,
     vectors of up to mv_range pixels, rects across their block)."""

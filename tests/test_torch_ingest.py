@@ -129,6 +129,88 @@ def test_keyframe_aligned_concat_and_padded_control(emit_frames):
     assert pp.stats == {"concat_windows": 1, "padded_windows": 2}
 
 
+# the elided route's batches: (sources, window, stats)
+ELIDED_BATCHES = {
+    "concat": lambda: (ALIGNED2, 8, {"concat_windows": 4,
+                                     "padded_windows": 0}),
+    "padded": lambda: ([single_key_stream(), single_key_stream(18)], 8,
+                       {"concat_windows": 1, "padded_windows": 2}),
+    "mixed": lambda: (STILLS3, 6, {"concat_windows": 1,
+                                   "padded_windows": 1}),
+}
+EMITS = {"frames": dict(emit_model_input=False),
+         "both": dict(model_downscale=2),
+         "model_only": dict(emit_frames=False, model_downscale=2)}
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("emit", sorted(EMITS))
+@pytest.mark.parametrize("batch", sorted(ELIDED_BATCHES))
+def test_elided_rows_upload_straight_from_the_window(batch, emit, native,
+                                                     monkeypatch):
+    """One device, B > 1, still elision: the windows and stats equal the
+    reference's; compact_changed_batch plans on a [B, T] frame-index
+    array, never on planes; every plane reaches the device through
+    to_device_into as a view of the window's pc, in runs of consecutive
+    frames; to_device carries no plane; the pad rows are never uploaded."""
+    from jsplayer_tpu_torch.utils.logging import LOG
+
+    if not native:
+        no_native(monkeypatch)
+    sources, window, stats = ELIDED_BATCHES[batch]()
+    planned, windows_pc, into, put = [], [], [], []
+    raw_plan = P.sp_recon.compact_changed_batch
+    raw_rows, raw_into, raw_put = (P.upload_changed_rows, P.to_device_into,
+                                   P.to_device)
+
+    def plan(paycode, mvk, changed):
+        planned.append(np.asarray(paycode))
+        return raw_plan(paycode, mvk, changed)
+
+    def rows(pc, *a, **k):
+        windows_pc.append(pc)
+        return raw_rows(pc, *a, **k)
+
+    def to_into(a, out):
+        assert np.shares_memory(a, windows_pc[-1])
+        into.append(a.shape)
+        return raw_into(a, out)
+
+    def to_dev(a, device):
+        put.append(np.asarray(a))
+        return raw_put(a, device)
+
+    monkeypatch.setattr(P.sp_recon, "compact_changed_batch", plan)
+    monkeypatch.setattr(P, "upload_changed_rows", rows)
+    monkeypatch.setattr(P, "to_device_into", to_into)
+    monkeypatch.setattr(P, "to_device", to_dev)
+    before = LOG.counters.copy()
+    jp, pp = pipelines(sources, window=window, still_elision=True,
+                       **EMITS[emit])
+    assert_windows_equal(list(jp), list(pp))
+    assert pp.stats == jp.stats == stats
+    assert pp._sp_native is native
+    got = LOG.counters - before
+
+    B = len(sources)
+    assert len(planned) == sum(stats.values())
+    for a in planned:
+        np.testing.assert_array_equal(
+            a, np.tile(np.arange(window), (B, 1)))
+    Y, X = windows_pc[0].shape[2:]
+    assert all(a.shape[-2:] != (Y, X) for a in put)
+    assert all(len(s) == 3 and s[1:] == (Y, X) for s in into)
+    assert got["elision.direct_runs"] == len(into) > 0
+    assert got["elision.direct_rows"] == sum(s[0] for s in into)
+    assert got["elision.direct_rows"] == (got["frames.scanned"]
+                                          - got["rows.padded"])
+    assert (got["rows.padded"] > 0) == (batch != "concat")
+    # the real rows' planes and the small arrays: no pad row is uploaded
+    assert got["upload.calls"] == len(into) + len(put)
+    assert got["upload.bytes"] == (got["elision.direct_rows"] * Y * X * 4
+                                   + sum(a.nbytes for a in put))
+
+
 def test_packed_model_only_single_stream():
     """model_packed with emit_frames=False.  One stream: the reference's
     batched packed model scan fails for B>1 (ROADMAP.md queue 3)."""

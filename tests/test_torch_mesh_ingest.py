@@ -78,11 +78,28 @@ def test_kmv_dp(native, kw, monkeypatch):
     dict(window=6, still_elision=True, emit_frames=False,
          model_downscale=2),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
-def test_kmv_elided_dp(kw):
+def test_kmv_elided_dp(kw, monkeypatch):
     """tests/test_ingest.py:774: still-elision under a mesh takes the
-    PADDED layout (every window) through the sharded step."""
+    PADDED layout (every window) through the sharded step, compacting the
+    paycode planes themselves on the host for the slots (one device plans
+    on frame indices instead) and never placing rows straight from the
+    window."""
+    planned = []
+    raw = P.sp_recon.compact_changed_batch
+
+    def plan(paycode, mvk, changed):
+        planned.append(np.asarray(paycode).shape)
+        return raw(paycode, mvk, changed)
+
+    def direct(*a, **k):
+        raise AssertionError("upload_changed_rows under a mesh")
+
+    monkeypatch.setattr(P.sp_recon, "compact_changed_batch", plan)
+    monkeypatch.setattr(P, "upload_changed_rows", direct)
     pp, port = compare(STILLS8, 8, **kw)
     assert pp.stats["concat_windows"] == 0 and pp.stats["padded_windows"]
+    assert len(planned) == pp.stats["padded_windows"]
+    assert all(len(s) == 4 and s[:2] == (8, 6) for s in planned)
     if kw.get("emit_frames", True):
         assert any(w["frames_u32"].shape[0] < 6 * 8 for w in port)
 

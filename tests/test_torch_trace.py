@@ -8,8 +8,8 @@ containers still-elided): every jsp.* span is in the exported Chrome
 trace, and every one but jsp.demux lies inside a jsp.window; self times
 are >= 0 and add up to jsp.window's total; each window's stills kept out
 plus its real scanned rows are its timeline frames; upload.bytes is what
-was handed to to_device; and the windows equal those of a run with
-tracing off, bit for bit.
+was handed to to_device and to_device_into; and the windows equal those
+of a run with tracing off, bit for bit.
 """
 
 import json
@@ -59,7 +59,7 @@ SPANS = {
                     "jsp.upload", "jsp.scan", "jsp.epilogue"},
 }
 ELIDED = {"sp_kmv_elided", "lane_elided"}
-# every module that binds to_device by name
+# every module that binds to_device (or to_device_into) by name
 UPLOADERS = (P, lane_transport, rans_lanes, port_mesh)
 
 
@@ -151,13 +151,18 @@ def test_traced_run(monkeypatch, tmp_path, name):
     sources, kw = BATCHES[name]()
     plain = run(sources, kw)
 
-    sent = []  # nbytes handed to to_device
+    sent = []  # nbytes handed to to_device and to_device_into
     by_window: dict = {}  # window id -> counter -> n
     raw_put, raw_count = port_device.to_device, L.LOG.count
+    raw_into = port_device.to_device_into
 
     def put(a, device):
         sent.append(np.ascontiguousarray(a).nbytes)
         return raw_put(a, device)
+
+    def put_into(a, out):
+        sent.append(np.ascontiguousarray(a).nbytes)
+        return raw_into(a, out)
 
     def count(key, n=1):
         w = L.TRACE.window()
@@ -168,6 +173,8 @@ def test_traced_run(monkeypatch, tmp_path, name):
 
     for mod in UPLOADERS:
         monkeypatch.setattr(mod, "to_device", put)
+        if hasattr(mod, "to_device_into"):
+            monkeypatch.setattr(mod, "to_device_into", put_into)
     monkeypatch.setattr(L.LOG, "count", count)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -237,7 +244,8 @@ def test_traced_run(monkeypatch, tmp_path, name):
     else:
         assert "frames.elided" not in ctr
 
-    # the upload counter is the bytes handed to to_device
+    # the upload counter is the bytes handed to to_device and
+    # to_device_into
     assert ctr["upload.bytes"] == sum(sent) > 0
     assert ctr["upload.calls"] == len(sent)
     assert summary["calls"]["jsp.upload"] == len(sent)
