@@ -1,5 +1,14 @@
 """One run of one cell: set-up, the measured window, the judgement.
 
+A cell runs on its `chips` cards, from one process: the CUDA indices
+counted up from the first card it is given (``cuda:0`` for run.py).  A
+configuration that names a mesh (``"mesh": {"dp": .., "gop": ..}``, beside
+``ingest``) gets one ``(dp, gop)`` mesh a run from the port's
+``make_mesh``, slot s (process-major) on card s % chips, and every pass
+runs on it; the port's steps gather every slot's result on the first
+card, where the window is judged.  A configuration without one builds no
+mesh and runs on the first card alone.
+
 The window drives ``jsplayer_tpu_torch.VideoIngestPipeline`` over
 ``MemorySource``s of the cell's input bytes in a closed loop: one
 consumer pulls windows as fast as they come, and each pass over the
@@ -7,11 +16,11 @@ inputs builds a new pipeline (so demux and keyframe probing are paid each
 pass, as a user opening a batch of files pays them).  The consumer holds
 each window until the next one arrives and adds no synchronise between
 windows.  The window ends with the last window of the first pass that
-ends at or after `seconds`, then ``torch.cuda.synchronize()``: the rate
-is whole passes over the whole span.  A cut inside a pass would strand
-work: the pipeline decodes window i+1 before it hands out window i, so
-the window delivered at the cut has paid for one that is never counted
-(one window in two of a pass of two).
+ends at or after `seconds`, then ``torch.cuda.synchronize()`` on every
+card of the cell: the rate is whole passes over the whole span.  A cut
+inside a pass would strand work: the pipeline decodes window i+1 before
+it hands out window i, so the window delivered at the cut has paid for
+one that is never counted (one window in two of a pass of two).
 
 Set-up, before it: the port's imports, its host library and kernels
 (built into build/ at first use), the inputs from the seed, then one warm
@@ -35,18 +44,48 @@ from .trace import (GPU_CATS, Counters, Spans, idle_gaps, label_gaps,
                     read_trace, warn)
 
 
-def _pipeline(cell, inputs, device):
+def cards(cell, device) -> list:
+    """The cell's cards: `chips` CUDA devices counted up from `device`; on
+    the CPU, `device` alone (every slot of a mesh is then the CPU)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev]
+    base = dev.index or 0
+    return [torch.device("cuda", base + k) for k in range(cell.chips)]
+
+
+def make_cell_mesh(cell, cell_cards: list):
+    """The configuration's (dp, gop) mesh over `cell_cards`, slot s on
+    card s % len(cell_cards), or None when the configuration names none."""
+    m = cell.config.get("mesh")
+    if m is None:
+        return None
+    from jsplayer_tpu_torch.pipeline import mesh
+
+    dp, gop = int(m["dp"]), int(m["gop"])
+    if (dp * gop) % cell.chips:
+        raise ValueError(f"{cell.name}: the mesh's dp*gop = {dp * gop} "
+                         f"slots do not divide over its {cell.chips} cards")
+    if cell.config["streams"] % dp:
+        raise ValueError(f"{cell.name}: {cell.config['streams']} streams do "
+                         f"not divide over the mesh's dp = {dp}")
+    return mesh.make_mesh(dp, gop, devices=[
+        cell_cards[s % len(cell_cards)] for s in range(dp * gop)])
+
+
+def _pipeline(cell, inputs, device, mesh=None):
     from jsplayer_tpu_torch import (IngestConfig, MemorySource,
                                     VideoIngestPipeline)
 
-    cfg = IngestConfig(**cell.ingest_fields(), device=str(device))
+    cfg = IngestConfig(**cell.ingest_fields(), device=str(device), mesh=mesh)
     return VideoIngestPipeline([MemorySource(c) for c in inputs.containers],
                                cfg)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(cards: list) -> None:
+    for c in cards:
+        if c.type == "cuda":
+            torch.cuda.synchronize(c)
 
 
 class Window:
@@ -63,17 +102,18 @@ class Window:
         self.pass_s: list = []  # each pass's seconds
 
 
-def drive(cell, inputs, device, seconds, keep: int, tally: Window) -> None:
+def drive(cell, inputs, device, seconds, keep: int, tally: Window,
+          mesh=None) -> None:
     """Whole passes until one ends at or after `seconds` (one pass when
-    `seconds` is None).  Windows of pass `keep` and of the last pass stay
-    held in tally.held."""
+    `seconds` is None), on `mesh` when there is one.  Windows of pass
+    `keep` and of the last pass stay held in tally.held."""
     T = cell.config["frames"]
     B = len(inputs.containers)
     t0 = time.perf_counter()
     while True:
         p = tally.passes
         tp = time.perf_counter()
-        pipe = _pipeline(cell, inputs, device)
+        pipe = _pipeline(cell, inputs, device, mesh)
         it = iter(pipe)
         tally.held[p] = []
         try:
@@ -124,13 +164,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     caller made them already."""
     _require_native()
     dev = torch.device(device)
+    cell_cards = cards(cell, dev)
     if inputs is None:
         inputs = make_inputs(cell, seed)
     setup = {f"inputs_{k}_s": v for k, v in inputs.seconds.items()}
+    mesh = make_cell_mesh(cell, cell_cards)
     t = time.perf_counter()
     warm = Window()
-    drive(cell, inputs, dev, None, 0, warm)
-    _sync(dev)
+    drive(cell, inputs, dev, None, 0, warm, mesh)
+    _sync(cell_cards)
     del warm
     setup["warm_pass_s"] = time.perf_counter() - t
     keep = seed % 2
@@ -155,8 +197,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
         ann = torch.profiler.record_function("portbench.window")
         ann.__enter__()
         host0_ns = time.perf_counter_ns()
-    drive(cell, inputs, dev, seconds, keep, tally)
-    _sync(dev)
+    drive(cell, inputs, dev, seconds, keep, tally, mesh)
+    _sync(cell_cards)
     w1 = time.perf_counter()
     cpu1 = os.times()
     if trace:
@@ -164,8 +206,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
         prof.__exit__(None, None, None)
         spans.uninstall()
     window_s = w1 - w0
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
+    peaks = [int(torch.cuda.max_memory_allocated(c)) if c.type == "cuda"
+             else 0 for c in cell_cards]
     cpu_s = (cpu1[0] - cpu0[0]) + (cpu1[1] - cpu0[1])
     res = {
         "attempted": tally.frames, "failed": min(tally.quarantined,
@@ -177,7 +219,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
         "device": {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu"),
-                   "count": cell.chips, "memory_peak_bytes": int(peak)},
+                   "count": cell.chips, "memory_peak_bytes": max(peaks),
+                   "memory_peak_bytes_by_card": peaks},
     }
     if not trace:
         res["metrics"] = {
@@ -187,7 +230,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     else:
         tr = read_trace(prof)
         offset_us = tr["w0"] - host0_ns / 1e3
-        busy_us = float((tr["busy"][:, 1] - tr["busy"][:, 0]).sum())
         gaps = idle_gaps(tr["busy"], tr["w0"], tr["w1"])
         ctx = Context(cell=cell, spans=spans, launches=counters.read(),
                       trace=tr, frames=tally.frames, window_s=window_s,
@@ -200,7 +242,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
                 warn(f"{m['name']}: nothing to read in this run")
             else:
                 res["metrics"][m["name"]] = float(v)
-        res["device"]["busy_s"] = busy_us / 1e6
+        # every card of the cell, and any other the trace shows
+        by_card = {**{c.index: 0.0 for c in cell_cards if c.type == "cuda"},
+                   **ctx.card_busy_seconds()}
+        res["device"]["busy_s"] = sum(  # the mean over the cell's cards
+            by_card.get(c.index, 0.0) for c in cell_cards) / cell.chips
+        res["device"]["busy_s_by_card"] = {str(k): v for k, v
+                                           in sorted(by_card.items())}
         res["device"]["window_s"] = (tr["w1"] - tr["w0"]) / 1e6
         ops = sorted(tr["by_name"].items(), key=lambda kv: -kv[1])[:10]
         idle = sorted(label_gaps(gaps, spans, offset_us).items(),
@@ -246,6 +294,12 @@ class Context:
             if e["cat"] in cats and (name_has is None or name_has in e["name"]):
                 s += b - a
         return s / 1e6
+
+    def card_busy_seconds(self) -> dict:
+        """Card → seconds of the window in which some kernel, copy or
+        memset ran on that card."""
+        return {k: float((b[:, 1] - b[:, 0]).sum()) / 1e6
+                for k, b in self.trace["busy_by_card"].items()}
 
 
 def _reader(cell, name: str):

@@ -4,7 +4,8 @@
         --seeds <n> [<n> ...] [--control-seeds <n> ...]
 
 In one process, for each seed: the cell's inputs, one run of the program
-as the benchmark runs it (set-up, a window of `seconds`, the judgement),
+as the benchmark runs it (set-up, a window of `seconds`, the judgement;
+on the cell's cards counted up from `--device`, cuda:0 by default),
 and for each control seed the reference's control (references/<name>.py,
 one precision below the configuration) put in the program's place over a
 whole pass and judged the same way.  One JSON line a seed on standard
@@ -32,13 +33,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
-    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--device", default="cuda:0",
+                    help="the cell's first card")
     ap.add_argument("--checkout", default=None,
                     help="another checkout's BENCHMARK.json and data")
     args = ap.parse_args(argv)
     if CHECKOUT not in sys.path:
         sys.path.insert(0, CHECKOUT)
-    from portbench.run import _paths
+    from portbench.run import _paths, missing_cards
 
     _paths()
     from portbench.harness import run_cell
@@ -47,6 +49,9 @@ def main(argv=None) -> int:
     from portbench.spec import Bench
 
     cell = Bench(args.checkout or CHECKOUT).cell(args.workload)
+    missing = missing_cards(cell, args.device)
+    if missing:
+        ap.error(missing)
     ref = cell.bench.module("references", cell.config["reference"])
     prog, ctl = {}, {}
     for seed in dict.fromkeys(args.seeds + args.control_seeds):

@@ -1,9 +1,12 @@
-"""Run one cell of the benchmark of jsplayer_tpu_torch once, on one card.
+"""Run one cell of the benchmark of jsplayer_tpu_torch once, on its cards.
 
     python3 portbench/run.py --workload <name> --seed <n> --seconds <s> \
-        --trace <0|1>
+        --trace <0|1> [--device cuda:<k>]
 
-from the root of a checkout.  BENCHMARK.json names the cells.  The run
+from the root of a checkout.  BENCHMARK.json names the cells.  A cell
+runs in this one process on the `chips` cards it asks for, counted up
+from `--device` (cuda:0 by default); a configuration that names a mesh
+puts slot s on card s % chips.  The run
 makes the cell's inputs from the seed, warms up on one pass over them,
 measures for `seconds` (portbench/harness.py), judges what the window
 delivered against the plain reference, and prints as the last line of its
@@ -51,32 +54,48 @@ def _paths() -> None:
                                                       "torch_extensions")
 
 
+def missing_cards(cell, device: str):
+    """Why the cell cannot run from CUDA card `device` (the cell's `chips`
+    cards counted up from it), or None when it can.  The CPU, which the
+    tests give readings.py and span_idle.py, needs no card."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    first = dev.index or 0
+    if seen < first + cell.chips:
+        return (f"{cell.name} needs {cell.chips} CUDA card(s) from "
+                f"{device}; torch {torch.__version__} sees {seen}")
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--device", default="cuda:0",
+                    help="the cell's first card")
     args = ap.parse_args(argv)
     _paths()
-    import torch
-
     from portbench.nojax import forbidden
     from portbench.spec import Bench
 
     bench = Bench(CHECKOUT)
     cell = bench.cell(args.workload)
-    if not torch.cuda.is_available() or \
-            torch.cuda.device_count() < cell.chips:
-        print(f"portbench: {args.workload} needs {cell.chips} CUDA card(s); "
-              f"torch {torch.__version__} sees "
-              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
-              file=sys.stderr)
+    missing = (missing_cards(cell, args.device)
+               if args.device.startswith("cuda") else
+               f"--device {args.device} is no CUDA card")
+    if missing:
+        print(f"portbench: {missing}", file=sys.stderr)
         return 2
     from portbench.harness import run_cell
 
-    res = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda:0",
-                   _T0)
+    res = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                   args.device, _T0)
     bad = forbidden()
     if bad:
         print(f"portbench: modules of {bad} were loaded in this process",

@@ -5,7 +5,8 @@
     python3 portbench/span_idle.py --read <dir>/<workload>-<seed>.trace.json.gz
 
 The first form, from the root of a checkout on the GPU machine, runs the
-cell as ``run.py --trace 1`` does, keeps the window's Chrome trace
+cell as ``run.py --trace 1`` does (on its cards counted up from
+``--device``, cuda:0 by default), keeps the window's Chrome trace
 (``<dir>/<workload>-<seed>.trace.json.gz``) and prints one JSON line with
 the run's ``metrics``, ``window`` and ``device`` as run.py gives them,
 ``program`` (the port's TRACE.summary()) and the reduction of the trace
@@ -129,6 +130,7 @@ def reduce_trace(events) -> dict:
 def _run(args) -> dict:
     from portbench import harness
     from portbench.program import summary
+    from portbench.run import missing_cards
     from portbench.spec import Bench
 
     os.makedirs(args.out, exist_ok=True)
@@ -157,6 +159,9 @@ def _run(args) -> dict:
 
     harness.read_trace = keep
     cell = Bench(CHECKOUT).cell(args.workload)
+    missing = missing_cards(cell, args.device)
+    if missing:
+        raise SystemExit(f"portbench: {missing}")
     res = harness.run_cell(cell, args.seed, args.seconds, True, args.device,
                            _T0)
     prog = summary() or {}
@@ -178,7 +183,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int)
     ap.add_argument("--seconds", type=float)
     ap.add_argument("--out")
-    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--device", default="cuda:0",
+                    help="the cell's first card")
     ap.add_argument("--read", help="a kept trace (.trace.json.gz) to reduce")
     args = ap.parse_args(argv)
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]

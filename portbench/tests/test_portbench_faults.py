@@ -2,8 +2,9 @@
 broken underneath: `correct` has to come out false for each fault a cell
 can have (a scan step that returns its state unchanged; half of the batch
 left out of the step; an answer altered where it is produced), and true
-with nothing broken.  One card has no exchange between chips to leave
-out."""
+with nothing broken.  These cells run on one card, with no exchange
+between cards to leave out; a cell on a mesh has that fault too, and
+test_portbench_mesh.py breaks it there."""
 
 from __future__ import annotations
 

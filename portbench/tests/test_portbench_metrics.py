@@ -28,8 +28,11 @@ class FakeProf:
             json.dump({"traceEvents": self.events}, f)
 
 
-def ev(cat, name, ts, dur):
-    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+def ev(cat, name, ts, dur, card=0):
+    """A Chrome trace event as Kineto writes it: a device event's pid is
+    its card, which args.device names too."""
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "pid": card, "args": {"device": card}}
 
 
 TRACE = [
@@ -80,6 +83,28 @@ def test_trace_reduction():
                                       [5500, 6000], [6100, 10900]])
     np.testing.assert_allclose(_union(np.array([[3., 4.], [1., 2.5],
                                                 [2., 3.]])), [[1, 4]])
+
+
+def test_busy_by_card():
+    """Each device event keeps its card (args.device, else the pid): busy
+    time by card, beside the merged busy time of every card."""
+    other = [ev("kernel", "kmv_compose", 2000.0, 3000.0, card=2),
+             ev("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 8000.0,
+                400.0, card=2)]
+    del other[1]["args"]["device"]  # the pid alone names the card
+    one = ctx()
+    assert set(one.trace["busy_by_card"]) == {0}
+    np.testing.assert_allclose(one.trace["busy_by_card"][0],
+                               one.trace["busy"])
+    assert one.card_busy_seconds() == pytest.approx({0: 2300e-6})
+    two = Context(**{**one.__dict__,
+                     "trace": read_trace(FakeProf(TRACE + other))})
+    assert list(two.trace["card"]) == [0] * 6 + [2, 2]
+    assert two.card_busy_seconds() == pytest.approx({0: 2300e-6,
+                                                     2: 3400e-6})
+    np.testing.assert_allclose(
+        two.trace["busy"], [[1000, 1100], [2000, 5500], [6000, 6100],
+                            [8000, 8400], [10900, 11000]])
 
 
 def test_metric_arithmetic():

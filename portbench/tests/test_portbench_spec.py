@@ -34,7 +34,19 @@ def test_form():
         assert 1 <= len(c["source"]) <= 200 and 1 <= len(c["why"]) <= 200
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    assert sum(w["chips"] == 4 for w in SPEC["workloads"]) <= max(
+        1, len(WORKLOADS) // 4)
+    for c in SPEC["configs"]:
+        with open(os.path.join(CHECKOUT, c["file"])) as f:
+            mesh = json.load(f).get("mesh")
+        chips = {w["chips"] for w in SPEC["workloads"]
+                 if w["config"] == c["name"]}
+        if mesh is None:  # one card, no mesh
+            assert chips == {1}, c["name"]
+        else:  # a slot a card
+            assert set(mesh) == {"dp", "gop"}, c["name"]
+            assert chips == {mesh["dp"] * mesh["gop"]}, c["name"]
     e2e = {m["name"] for m in SPEC["end_to_end"]}
     assert e2e == {"delivered_fps", "host_cpu_ms_per_frame", "setup_s"}
     for m in SPEC["end_to_end"]:

@@ -8,9 +8,9 @@ there leaves its set broken: the metrics that read the set give nothing,
 with a warning, and the run goes on.  ``counters/<set>.json`` lists port
 wrappers whose ``.launches`` the run reads.
 
-The device trace is torch.profiler's (CPU and CUDA activity) over the
-measured window, exported as a Chrome trace into a temporary file that is
-read once and deleted.  A ``portbench.window`` annotation marks the window
+The device trace is torch.profiler's (CPU and CUDA activity, every card
+the process uses) over the measured window, exported as a Chrome trace
+into a temporary file that is read once and deleted.  A ``portbench.window`` annotation marks the window
 in it and ties the trace's clock to the host's.
 """
 
@@ -146,7 +146,9 @@ def _union(iv: np.ndarray) -> np.ndarray:
 
 def read_trace(prof) -> dict:
     """The profiler's Chrome trace → device events in the window (us, on
-    the trace's clock), the window's bounds, and per-name device time."""
+    the trace's clock), each event's card, the window's bounds, the merged
+    busy intervals over every card and on each card, and per-name device
+    time."""
     fd, path = tempfile.mkstemp(prefix="portbench-", suffix=".json")
     os.close(fd)
     try:
@@ -165,14 +167,25 @@ def read_trace(prof) -> dict:
            and e.get("cat") in GPU_CATS]
     iv = np.array([[float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))]
                    for e in gpu] or np.zeros((0, 2)), dtype=np.float64)
-    iv = np.clip(iv, w0, w1) if len(iv) else iv
+    iv = np.clip(iv, w0, w1)
     by_name: dict = {}
     for e, (a, b) in zip(gpu, iv):
         name = e["name"]
         by_name[name] = by_name.get(name, 0.0) + (b - a)
-    return {"w0": w0, "w1": w1, "events": gpu, "iv": iv,
-            "busy": _union(iv[iv[:, 1] > iv[:, 0]] if len(iv) else iv),
+    card = np.array([_card(e) for e in gpu], dtype=np.int64)
+    live = iv[:, 1] > iv[:, 0]
+    return {"w0": w0, "w1": w1, "events": gpu, "iv": iv, "card": card,
+            "busy": _union(iv[live]),
+            "busy_by_card": {int(k): _union(iv[live & (card == k)])
+                             for k in np.unique(card)},
             "by_name": by_name}
+
+
+def _card(e: dict) -> int:
+    """The card a device event ran on: Kineto's args.device, else its
+    pid (a device event's pid is its device index)."""
+    d = e.get("args", {}).get("device")
+    return int(e["pid"] if d is None else d)
 
 
 def idle_gaps(busy: np.ndarray, w0: float, w1: float) -> np.ndarray:
