@@ -19,10 +19,10 @@ port splits explicitly: ``run_bg`` runs a function on each slot's part of
 each slot's rows of a leading-axis spec (``row_slots``: ``P("dp")``,
 replicated over gop, or the lane path's ``P(("dp", "gop"))``); both copy
 every slot's inputs to its device first, then launch every slot, then
-assemble the result on the first local slot's device.  The reference's
-three ``NamedSharding`` helpers keep their names: ``stream_sharding``,
-``batch_sharding`` and ``replicated`` return a ``Placement``, whose
-``indices`` says which part of an array each slot holds.
+assemble the result on the first local slot's device (the gather slot).
+The reference's three ``NamedSharding`` helpers keep their names:
+``stream_sharding``, ``batch_sharding`` and ``replicated`` return a
+``Placement``, whose ``indices`` says which part of an array each slot holds.
 
 Several processes: ``init_multihost`` joins a torch.distributed process
 group over TCP; ``make_mesh`` then lays the slots out process-major, as
@@ -30,6 +30,18 @@ group over TCP; ``make_mesh`` then lays the slots out process-major, as
 A process owns whole dp rows (gop divides its slot count: keep gop within
 one host, as the reference says), and a step returns that process's rows
 (``Mesh.local_rows`` says which).
+
+Traced (utils/logging.TRACE, on only while a torch.profiler session
+records), both steps build the slots' inputs inside a ``jsp.shard`` span
+(the uploads' ``jsp.upload`` spans are its children) and assemble the
+result inside ``jsp.gather``; the launches stay in the caller's span.
+Always, each call counts (LOG) ``mesh.dispatches`` (one),
+``mesh.slot_launches`` (the slots it launched) and
+``mesh.exchange_bytes``: the bytes of every tensor input that a slot other
+than the gather slot receives (a carry, held on the gather slot's device)
+and of every result such a slot returns to the gather.  They are counted
+by slot, not by card: on four cards, one slot a card, they are the peer
+copies; on one card they count all the same.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import numpy as np
 import torch
 
 from ..device import to_device
+from ..utils.logging import LOG, TRACE
 
 
 class Mesh:
@@ -264,6 +277,24 @@ def _gather(outs: dict, join):
     return join(outs)
 
 
+def _count(mesh: Mesh, arrays, parts: dict, outs: dict) -> None:
+    """The counters of one run_bg or run_rows call (the module's
+    docstring): what crosses between the gather slot and every other
+    slot."""
+    first = mesh.local_slots[0]
+    moved = 0
+    for s, xs in parts.items():
+        if s == first:
+            continue
+        moved += sum(x.nbytes for a, x in zip(arrays, xs)
+                     if isinstance(a, torch.Tensor))
+        o = outs[s]
+        moved += sum(t.nbytes for t in (o if isinstance(o, tuple) else (o,)))
+    LOG.count("mesh.dispatches")
+    LOG.count("mesh.slot_launches", len(outs))
+    LOG.count("mesh.exchange_bytes", moved)
+
+
 def run_bg(mesh: Mesh, fn, *arrays):
     """shard_map over ``P("dp", "gop")``: fn on each local slot's part of
     the [B, G, ...] `arrays`, the slot's (b, g) rows flattened into fn's
@@ -274,9 +305,10 @@ def run_bg(mesh: Mesh, fn, *arrays):
     B, G = max(a.shape[0] for a in arrays), arrays[0].shape[1]
     slots = bg_slots(mesh, B, G)
     base = min(rows.start for rows, _ in slots.values())
-    parts = {s: [_slot_input(a, rows, B, base, mesh.devices[s], cols)
-                 .flatten(0, 1) for a in arrays]
-             for s, (rows, cols) in slots.items()}
+    with TRACE.span("jsp.shard"):
+        parts = {s: [_slot_input(a, rows, B, base, mesh.devices[s], cols)
+                     .flatten(0, 1) for a in arrays]
+                 for s, (rows, cols) in slots.items()}
     # every copy above, every launch here: nothing in this loop waits for
     # the device, so slots on separate cards run at once
     outs = {s: fn(*x) for s, x in parts.items()}
@@ -290,7 +322,10 @@ def run_bg(mesh: Mesh, fn, *arrays):
             per_slot[(i, j)].unflatten(0, shape[(i, j)]).to(mesh.device)
             for j in range(gop)], dim=1) for i in dp_rows])
 
-    return _gather(outs, join)
+    with TRACE.span("jsp.gather"):
+        out = _gather(outs, join)
+    _count(mesh, arrays, parts, outs)
+    return out
 
 
 def run_rows(mesh: Mesh, fn, *arrays, axes=("dp",)):
@@ -300,8 +335,12 @@ def run_rows(mesh: Mesh, fn, *arrays, axes=("dp",)):
     n = max(a.shape[0] for a in arrays)  # as run_bg
     slots = row_slots(mesh, n, axes)
     base = min(rows.start for rows in slots.values())
-    parts = {s: [_slot_input(a, rows, n, base, mesh.devices[s])
-                 for a in arrays] for s, rows in slots.items()}
+    with TRACE.span("jsp.shard"):
+        parts = {s: [_slot_input(a, rows, n, base, mesh.devices[s])
+                     for a in arrays] for s, rows in slots.items()}
     outs = {s: fn(*x) for s, x in parts.items()}  # as run_bg
-    return _gather(outs, lambda per_slot: torch.cat(
-        [per_slot[s].to(mesh.device) for s in sorted(per_slot)]))
+    with TRACE.span("jsp.gather"):
+        out = _gather(outs, lambda per_slot: torch.cat(
+            [per_slot[s].to(mesh.device) for s in sorted(per_slot)]))
+    _count(mesh, arrays, parts, outs)
+    return out

@@ -25,7 +25,7 @@ from jsplayer_tpu_torch.pipeline import ingest as P
 from jsplayer_tpu_torch.pipeline import mesh as port_mesh
 from jsplayer_tpu_torch.transcode import transcode_to_lane
 from jsplayer_tpu_torch.utils import logging as L
-from test_ingest import msv1_avi, sp_avi_stills
+from test_ingest import _check_elided_stream, msv1_avi, sp_avi_stills
 from test_lane_container import make_avi
 from test_torch_ingest import assert_windows_equal
 
@@ -249,3 +249,105 @@ def test_traced_run(monkeypatch, tmp_path, name):
     assert ctr["upload.bytes"] == sum(sent) > 0
     assert ctr["upload.calls"] == len(sent)
     assert summary["calls"]["jsp.upload"] == len(sent)
+
+
+# -- the mesh's spans and counters (pipeline/mesh.run_bg, run_rows) ----------
+
+MESH_COUNTERS = ("mesh.dispatches", "mesh.slot_launches",
+                 "mesh.exchange_bytes")
+
+
+def _sp_mesh():
+    avis, golds = zip(*(sp_avi_stills(s) for s in (3, 7, 11, 13)))
+    return avis, golds, dict(window=6, still_elision=True,
+                             emit_model_input=True, model_downscale=2)
+
+
+def _lane_mesh():
+    return [transcode_to_lane(make_avi(s, 64, 48, 12, key_every=3)[0],
+                              window=3, K=2, payload="raw")
+            for s in range(4)], None, dict(sp_device_path="lane",
+                                           still_elision=True)
+
+
+def mesh_run(sources, kw):
+    """The batch on a dp=4 mesh of four CPU slots → (windows, what the run
+    added to the mesh's LOG counters)."""
+    m = port_mesh.make_mesh(4, 1, devices=[torch.device("cpu")] * 4)
+    before = {k: L.LOG.counters[k] for k in MESH_COUNTERS}
+    pipe = P.VideoIngestPipeline([MemorySource(s) for s in sources],
+                                 P.IngestConfig(device="cpu", mesh=m, **kw))
+    out = list(pipe)
+    return out, {k: L.LOG.counters[k] - before[k] for k in MESH_COUNTERS}
+
+
+def expected_exchange(windows, B=4, dp=4) -> int:
+    """mesh.exchange_bytes worked out from the windows' shapes: in each
+    window's dispatch every slot but the gather slot receives its streams'
+    carry-in frames and returns its [B/dp, Cpad] rows, 4 bytes a pixel."""
+    moved = 0
+    for w in windows:
+        rows, Y, X = w["frames_u32"].shape
+        moved += (B - B // dp) * (1 + rows // B) * Y * X * 4
+    return moved
+
+
+@pytest.mark.parametrize("make,step", [(_sp_mesh, "run_bg"),
+                                       (_lane_mesh, "run_rows")],
+                         ids=["kmv_elided", "lane_elided"])
+def test_mesh_spans_and_counters(monkeypatch, make, step):
+    """Untraced: no span opens.  Traced: jsp.shard and jsp.gather open once
+    a dispatch, inside jsp.scan; a dispatch a window, four slot
+    launches each, and the exchange bytes the windows' shapes give; the
+    windows equal the untraced run's bit for bit (and, kmv, the source
+    frames)."""
+    sources, golds, kw = make()
+    calls = []
+    raw_step = getattr(port_mesh, step)
+
+    def seen(*a, **k):
+        calls.append(1)
+        return raw_step(*a, **k)
+
+    monkeypatch.setattr(port_mesh, step, seen)
+    if step == "run_bg":
+        from jsplayer_tpu_torch.pipeline import batch
+
+        monkeypatch.setattr(batch, "run_bg", seen)
+
+    def boom(*a, **k):
+        raise AssertionError("record_function entered with tracing off")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", boom)
+        mp.setattr(torch.autograd.profiler, "record_function", boom)
+        stats, n = dict(L.TRACE.stats), len(L.TRACE.records)
+        plain, off = mesh_run(sources, kw)
+        assert not L.TRACE.active
+        assert L.TRACE.stats == stats and len(L.TRACE.records) == n
+
+    n_plain = len(calls)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced, on = mesh_run(sources, kw)
+    s = L.TRACE.summary()
+    assert_windows_equal(plain, traced)
+    if golds is not None:
+        for b, gold in enumerate(golds):
+            _check_elided_stream(traced, gold, b)
+        assert all("model_input" in w for w in traced)
+
+    # a dispatch a window
+    dispatches, moved = len(traced), expected_exchange(traced)
+    assert len(calls) == 2 * n_plain == 2 * dispatches
+    assert on == off == {"mesh.dispatches": dispatches,
+                         "mesh.slot_launches": 4 * dispatches,
+                         "mesh.exchange_bytes": moved}
+    assert {k: s["counters"][k] for k in MESH_COUNTERS} == on
+    assert s["calls"]["jsp.shard"] == s["calls"]["jsp.gather"] == dispatches
+    for span in ("jsp.shard", "jsp.gather"):
+        parents = {r[2] for r in L.TRACE.records if r[0] == span}
+        assert parents == {"jsp.scan"}, (span, parents)
+    # the slots' uploads are the shard's children (kmv: the planes)
+    up = {r[2] for r in L.TRACE.records if r[0] == "jsp.upload"}
+    assert "jsp.shard" in up
