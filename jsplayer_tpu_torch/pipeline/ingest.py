@@ -78,6 +78,7 @@ from ..kernels import msv1_paint, sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
 from ..kernels.sp_motion_pallas import decode_batch_fused
 from ..utils.logging import LOG, TRACE
+from .mesh import SlotBuilt
 
 #: the sp_device_path values (the reference's); another raises ValueError
 PORTED_SP_PATHS = ("kmv", "bc", "kmv_sparse", "general", "pallas", "lane")
@@ -867,18 +868,16 @@ class VideoIngestPipeline:
             (or shard over the mesh's dp axis) and the [B, Cpad] result is
             flattened with per-stream offsets.
 
-        On one device the compaction plans on frame indices and the changed
-        planes go straight from `pc` into the device stack
-        (upload_changed_rows); a mesh compacts the planes on the host for
-        its slots."""
+        The compaction plans on frame indices, and the changed planes go
+        straight from `pc` into a device stack (upload_changed_rows): the
+        scan's on one device, each slot's on its own device under a mesh."""
         B, T = pc.shape[:2]
         vi = self.info
-        direct = self.cfg.mesh is None
+        mesh = self.cfg.mesh
         with TRACE.span("jsp.compact"):
-            # rows: [B, Cpad] frame indices (one device) or planes (mesh)
+            # rows: [B, Cpad] indices of the changed frames in pc
             rows, mvkc, valid, outmap = sp_recon.compact_changed_batch(
-                np.tile(np.arange(T), (B, 1)) if direct else pc, mvk,
-                changed)
+                np.tile(np.arange(T), (B, 1)), mvk, changed)
         cpad = rows.shape[1]
         counts = valid.sum(axis=1).astype(np.int64)
         out = {"start_frame": start, "significant": self._put(sig)}
@@ -892,7 +891,7 @@ class VideoIngestPipeline:
             return out
 
         with TRACE.span("jsp.prep"):
-            full_first = direct and all(
+            full_first = mesh is None and all(
                 counts[b] == 0 or _full_frame(pc[b, rows[b, 0]])
                 for b in range(B))
         self.stats["concat_windows" if full_first else "padded_windows"] += 1
@@ -933,7 +932,8 @@ class VideoIngestPipeline:
                 -1).astype(np.int32)
         out["outmap"] = outmap_flat
         self._count_scan(valid.size, changed)
-        if direct and not self.cfg.emit_frames and self.cfg.emit_model_input:
+        if mesh is None and not self.cfg.emit_frames and \
+                self.cfg.emit_model_input:
             # fused: the compacted masked scan emits ONLY model tensors
             with TRACE.span("jsp.scan"):
                 carry, model = sp_recon.decode_batch_kmv_model(
@@ -947,8 +947,12 @@ class VideoIngestPipeline:
             out["model_input"] = model.reshape((B * cpad,) + model.shape[2:])
             return out
         with TRACE.span("jsp.scan"):
-            if not direct:
-                frames = self._sharded_kmv_step(rows, mvkc, valid)
+            if mesh is not None:
+                frames = self._sharded_kmv_step(SlotBuilt(
+                    (B, 1, cpad) + pc.shape[2:],
+                    lambda sl, _, dev: upload_changed_rows(
+                        pc[sl], rows[sl], counts[sl], dev, cpad)[:, None]),
+                    mvkc, valid)
             else:
                 frames = sp_recon.decode_batch_kmv(
                     init, upload_changed_rows(pc, rows, counts, self.device,
@@ -1155,7 +1159,9 @@ class VideoIngestPipeline:
 
     def _sharded_kmv_step(self, pc, mvk, changed):
         """kmv windows over the mesh's dp axis: [B, T, ...] → [B, G=1, T,
-        ...] rows, each slot scanning its own streams' P-chains."""
+        ...] rows, each slot scanning its own streams' P-chains.  `pc` is
+        the host paycode window, or a mesh.SlotBuilt [B, 1, T, Y, X] whose
+        slots upload their own rows."""
         from .batch import make_sp_decode_step_kmv
 
         if self._gop_group != 1:
@@ -1164,8 +1170,9 @@ class VideoIngestPipeline:
                 "native host stage); this transport shards dp only")
         step = self._sharded_step("_kmv_sharded", make_sp_decode_step_kmv)
         init = self._carry_init(pc.shape[0])
-        return step(init[:, None], pc[:, None], mvk[:, None],
-                    changed[:, None])[:, 0]
+        if not isinstance(pc, SlotBuilt):
+            pc = pc[:, None]
+        return step(init[:, None], pc, mvk[:, None], changed[:, None])[:, 0]
 
     def _sharded_bc_step(self, plane, bcode, rloc, mvk, changed):
         """bc windows over the mesh's dp axis."""

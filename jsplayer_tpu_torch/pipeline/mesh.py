@@ -42,6 +42,12 @@ than the gather slot receives (a carry, held on the gather slot's device)
 and of every result such a slot returns to the gather.  They are counted
 by slot, not by card: on four cards, one slot a card, they are the peer
 copies; on one card they count all the same.
+
+An input of ``run_bg`` may be a ``SlotBuilt`` in an array's place: each
+slot builds its part on its own device (still elision uploads each slot's
+changed paycode rows straight from the host window this way).  Such an
+input is an upload from the host, not an exchange between slots, so
+``mesh.exchange_bytes`` leaves it out.
 """
 
 from __future__ import annotations
@@ -253,13 +259,26 @@ def replicated(mesh: Mesh) -> Placement:
     return Placement(mesh, ())
 
 
+class SlotBuilt:
+    """An input of ``run_bg`` that each slot builds for itself: ``shape``
+    is the global [B, G, ...] shape it stands for, and ``build(rows, cols,
+    device)`` returns the slot's part [rows, cols, ...] (global slices) on
+    the slot's device."""
+
+    def __init__(self, shape, build):
+        self.shape = tuple(shape)
+        self.build = build
+
+
 def _slot_input(a, rows: slice, n: int, base: int, device,
                 cols: Optional[slice] = None):
     """A slot's part a[rows, cols] of a global [n, ...] input, on its
-    device.  `a` is a numpy array or a tensor holding either all n leading
-    rows or only this process's (what a step returns, e.g. a carried
-    frame), which start at global row `base`.  It only copies: it does not
-    wait for the device."""
+    device.  `a` is a SlotBuilt, or a numpy array or a tensor holding
+    either all n leading rows or only this process's (what a step returns,
+    e.g. a carried frame), which start at global row `base`.  It only
+    copies: it does not wait for the device."""
+    if isinstance(a, SlotBuilt):
+        return a.build(rows, cols, device)
     if a.shape[0] != n:
         rows = slice(rows.start - base, rows.stop - base)
     part = a[rows] if cols is None else a[rows, cols]
@@ -280,7 +299,8 @@ def _gather(outs: dict, join):
 def _count(mesh: Mesh, arrays, parts: dict, outs: dict) -> None:
     """The counters of one run_bg or run_rows call (the module's
     docstring): what crosses between the gather slot and every other
-    slot."""
+    slot.  Of the inputs, only tensors cross: numpy arrays and SlotBuilt
+    parts come from the host."""
     first = mesh.local_slots[0]
     moved = 0
     for s, xs in parts.items():
@@ -297,9 +317,10 @@ def _count(mesh: Mesh, arrays, parts: dict, outs: dict) -> None:
 
 def run_bg(mesh: Mesh, fn, *arrays):
     """shard_map over ``P("dp", "gop")``: fn on each local slot's part of
-    the [B, G, ...] `arrays`, the slot's (b, g) rows flattened into fn's
-    batch axis → fn's [B, G, ...] result(s) (this process's dp rows)
-    gathered on the mesh's device."""
+    the [B, G, ...] `arrays` (each a numpy array, a tensor or a
+    SlotBuilt), the slot's (b, g) rows flattened into fn's batch axis →
+    fn's [B, G, ...] result(s) (this process's dp rows) gathered on the
+    mesh's device."""
     # an input may hold only this process's rows (a carry): the others
     # hold all B
     B, G = max(a.shape[0] for a in arrays), arrays[0].shape[1]

@@ -280,6 +280,63 @@ def test_psum():
     assert got.device == CPU and int(got) == 28
 
 
+BG_COUNTERS = ("mesh.dispatches", "mesh.slot_launches",
+               "mesh.exchange_bytes", "upload.bytes", "upload.calls")
+
+
+def _bg_call(a):
+    """run_bg on a (4, 2) mesh of CPU slots of fn(a, c) = 2a + c over
+    [8, 2, 3] int32 inputs `a` and a carry c [8, 2] held as a tensor on
+    the gather slot's device → (the result, what the call added to the
+    counters)."""
+    from jsplayer_tpu_torch.utils.logging import LOG
+
+    _, pm = meshes(4, 2)
+    c = torch.arange(16, dtype=torch.int32).reshape(8, 2)
+    before = {k: LOG.counters[k] for k in BG_COUNTERS}
+    out = PM.run_bg(pm, lambda x, y: 2 * x + y[:, None], a, c)
+    return out, {k: LOG.counters[k] - before[k] for k in BG_COUNTERS}
+
+
+HOST = np.arange(48, dtype=np.int32).reshape(8, 2, 3)
+WANT = 2 * torch.from_numpy(HOST) + torch.arange(
+    16, dtype=torch.int32).reshape(8, 2, 1)
+
+
+def test_run_bg_counts_an_array_callers_inputs_as_before():
+    """A host array and a carry: the result is the whole computation, and
+    the counters are one dispatch, 8 slot launches, each of the 7 slots
+    past the gather slot receiving its carry part (2 x 4 B) and returning
+    its result part (2 x 3 x 4 B), and the host array uploaded in 8 parts
+    (upload.bytes = its bytes)."""
+    out, got = _bg_call(HOST)
+    assert torch.equal(out, WANT)
+    assert got == {"mesh.dispatches": 1, "mesh.slot_launches": 8,
+                   "mesh.exchange_bytes": 7 * (2 * 4 + 2 * 3 * 4),
+                   "upload.bytes": HOST.nbytes, "upload.calls": 8}
+
+
+def test_run_bg_slot_built_input():
+    """A SlotBuilt in the host array's place: each slot builds its own
+    part once, from its global (rows, cols) and on its device; the result
+    equals the array caller's, the build is no exchange and, made here
+    without to_device, no upload."""
+    built = []
+
+    def build(rows, cols, device):
+        built.append((rows, cols, device))
+        return torch.from_numpy(HOST[rows, cols]).to(device)
+
+    out, got = _bg_call(PM.SlotBuilt(HOST.shape, build))
+    assert torch.equal(out, WANT)
+    _, pm = meshes(4, 2)
+    assert built == [(*PM.bg_slots(pm, 8, 2)[s], CPU)
+                     for s in pm.local_slots]
+    assert got == {"mesh.dispatches": 1, "mesh.slot_launches": 8,
+                   "mesh.exchange_bytes": 7 * (2 * 4 + 2 * 3 * 4),
+                   "upload.bytes": 0, "upload.calls": 0}
+
+
 def test_dryrun_multichip_on_cpu_slots():
     from jsplayer_tpu_torch.dryrun import dryrun_multichip
 

@@ -77,31 +77,69 @@ def test_kmv_dp(native, kw, monkeypatch):
     dict(window=6, still_elision=True),
     dict(window=6, still_elision=True, emit_frames=False,
          model_downscale=2),
+    dict(dp=4, window=6, still_elision=True),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_kmv_elided_dp(kw, monkeypatch):
     """tests/test_ingest.py:774: still-elision under a mesh takes the
-    PADDED layout (every window) through the sharded step, compacting the
-    paycode planes themselves on the host for the slots (one device plans
-    on frame indices instead) and never placing rows straight from the
-    window."""
-    planned = []
-    raw = P.sp_recon.compact_changed_batch
+    PADDED layout (every window) through the sharded step.  As on one
+    device, compact_changed_batch plans on a [B, T] frame-index array,
+    never on planes, and the changed planes go straight from the window:
+    upload_changed_rows runs once a slot a window, in slot order, on the
+    slot's device, over views of the window's pc and of the plan's rows
+    at the slot's first stream (dp=8: one stream a slot; dp=4: two)."""
+    kw = dict(kw)
+    dp = kw.pop("dp", 8)
+    B, bs, window = len(STILLS8), len(STILLS8) // dp, kw["window"]
+    planned, windows_pc, uploads = [], [], []
+    raw_plan, raw_rows = P.sp_recon.compact_changed_batch, \
+        P.upload_changed_rows
+    raw_elided = P.VideoIngestPipeline._kmv_elided
+
+    def elided(self, pc, *a):
+        windows_pc.append(pc)
+        return raw_elided(self, pc, *a)
 
     def plan(paycode, mvk, changed):
-        planned.append(np.asarray(paycode).shape)
-        return raw(paycode, mvk, changed)
+        planned.append(np.asarray(paycode))
+        planned.append(raw_plan(paycode, mvk, changed))
+        return planned[-1]
 
-    def direct(*a, **k):
-        raise AssertionError("upload_changed_rows under a mesh")
+    def rows(pc, idx, counts, device, cpad=None):
+        uploads.append((len(windows_pc), len(planned), pc, idx, counts,
+                        device, cpad))
+        return raw_rows(pc, idx, counts, device, cpad)
 
+    monkeypatch.setattr(P.VideoIngestPipeline, "_kmv_elided", elided)
     monkeypatch.setattr(P.sp_recon, "compact_changed_batch", plan)
-    monkeypatch.setattr(P, "upload_changed_rows", direct)
-    pp, port = compare(STILLS8, 8, **kw)
+    monkeypatch.setattr(P, "upload_changed_rows", rows)
+    pp, port = compare(STILLS8, dp, **kw)
     assert pp.stats["concat_windows"] == 0 and pp.stats["padded_windows"]
-    assert len(planned) == pp.stats["padded_windows"]
-    assert all(len(s) == 4 and s[:2] == (8, 6) for s in planned)
+    indices, plans = planned[::2], planned[1::2]
+    assert len(indices) == pp.stats["padded_windows"]
+    for a in indices:
+        np.testing.assert_array_equal(a, np.tile(np.arange(window), (B, 1)))
+    assert len(uploads) == dp * pp.stats["padded_windows"]
+
+    def first_row(view, whole):
+        """The leading row of `whole` at which `view` starts."""
+        assert np.shares_memory(view, whole)
+        off = (view.__array_interface__["data"][0]
+               - whole.__array_interface__["data"][0])
+        assert off % whole.strides[0] == 0
+        return off // whole.strides[0]
+
+    for k, (w, n, pc, idx, counts, device, cpad) in enumerate(uploads):
+        slot = k % dp
+        whole_pc = windows_pc[w - 1]
+        plan_rows, _, valid, _ = plans[n // 2 - 1]
+        assert device == torch.device("cpu") and cpad == plan_rows.shape[1]
+        assert pc.shape == (bs, window) + whole_pc.shape[2:]
+        assert first_row(pc, whole_pc) == first_row(idx, plan_rows) == \
+            slot * bs
+        np.testing.assert_array_equal(
+            counts, valid[slot * bs:(slot + 1) * bs].sum(axis=1))
     if kw.get("emit_frames", True):
-        assert any(w["frames_u32"].shape[0] < 6 * 8 for w in port)
+        assert any(w["frames_u32"].shape[0] < window * B for w in port)
 
 
 def test_kmv_dp_two_streams_a_slot():

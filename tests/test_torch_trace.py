@@ -351,3 +351,36 @@ def test_mesh_spans_and_counters(monkeypatch, make, step):
     # the slots' uploads are the shard's children (kmv: the planes)
     up = {r[2] for r in L.TRACE.records if r[0] == "jsp.upload"}
     assert "jsp.shard" in up
+
+
+def test_mesh_elided_rows_upload_straight_from_the_window(monkeypatch):
+    """Still elision on a dp=4 mesh of four CPU slots: every real scanned
+    row goes from the pooled window straight to its slot
+    (elision.direct_rows = frames.scanned - rows.padded); upload.bytes is
+    those rows' planes and the small arrays handed to to_device, none of
+    them a plane, so no pad row is uploaded; mesh.exchange_bytes is the
+    carries and results the windows' shapes give; the frames are the
+    sources'."""
+    sources, golds, kw = _sp_mesh()
+    put = []
+    for mod in (P, port_mesh):
+        def to_dev(a, device, raw=mod.to_device):
+            put.append(np.asarray(a))
+            return raw(a, device)
+
+        monkeypatch.setattr(mod, "to_device", to_dev)
+    before = L.LOG.counters.copy()
+    windows, moved = mesh_run(sources, kw)
+    got = L.LOG.counters - before
+    for b, gold in enumerate(golds):
+        _check_elided_stream(windows, gold, b)
+
+    Y, X = windows[0]["frames_u32"].shape[1:]
+    direct = got["elision.direct_rows"]
+    assert got["rows.padded"] > 0 and direct > 0
+    assert direct == got["frames.scanned"] - got["rows.padded"]
+    assert all(a.shape[-2:] != (Y, X) for a in put)
+    assert got["upload.calls"] == got["elision.direct_runs"] + len(put)
+    assert got["upload.bytes"] == (direct * Y * X * 4
+                                   + sum(a.nbytes for a in put))
+    assert moved["mesh.exchange_bytes"] == expected_exchange(windows)
