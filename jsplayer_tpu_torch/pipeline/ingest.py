@@ -64,7 +64,7 @@ from __future__ import annotations
 import itertools
 import sys
 from dataclasses import dataclass, replace
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +78,8 @@ from ..kernels import msv1_paint, sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
 from ..kernels.sp_motion_pallas import decode_batch_fused
 from ..utils.logging import LOG, TRACE
+from .batch import (DecodeConfig, make_sp_decode_step_bc,
+                    make_sp_decode_step_kmv)
 from .mesh import SlotBuilt
 
 #: the sp_device_path values (the reference's); another raises ValueError
@@ -165,6 +167,92 @@ def upload_changed_rows(pc: np.ndarray, rows: np.ndarray,
     LOG.count("elision.direct_rows", int(counts.sum()))
     LOG.count("elision.direct_runs", runs)
     return out
+
+
+def _gather_rows(a: np.ndarray, rows: np.ndarray,
+                 valid: np.ndarray) -> np.ndarray:
+    """a[b, rows[b]] of a [B, T, ...] array for every stream b: the rows
+    of compact_changed_batch's plan, zero where `valid` is False."""
+    out = a[np.arange(a.shape[0])[:, None], rows]
+    out[~valid] = 0
+    return out
+
+
+def _padded_outmap(outmap: np.ndarray, cpad: int) -> np.ndarray:
+    """The PADDED layout's outmap [E, T] (E entries of cpad rows each) →
+    indices into the flat [E * cpad] row stack; -1 stays -1."""
+    return np.where(
+        outmap >= 0,
+        outmap + (np.arange(outmap.shape[0], dtype=np.int32) * cpad)[:, None],
+        -1).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class _PlaneTransport:
+    """What differs between the two plane transports, kmv and bc.  Both
+    carry a u32 plane [B, T, Y, X], small per-frame arrays and `changed`,
+    and every scan takes (init, plane, *small, changed)."""
+    name: str  # the pool key of its host buffers
+    small: tuple  # the small per-frame arrays' buffer keys, mvk last
+    buffers: Callable  # (lead shape, Y, X, nb, K) → the host buffers
+    # the native decode of one frame into the buffers at index i:
+    # (dec, src, buf, i, K) → (changed, significant)
+    decode: Callable
+    # (plane, *small) of one frame → whether it overwrites the whole frame
+    full_frame: Callable
+    decode_batch: Callable  # the dense batch scan
+    decode_compact: Callable  # one scan over a sequence of changed frames
+    decode_model: Callable  # the batch scan fused into model tensors
+    make_step: Callable  # pipeline/batch's sharded step
+    # a single stream without a mesh takes the exact compact scan
+    # (compact_changed) instead of the batched elision, as the reference's
+    # kmv route does
+    single_compact: bool
+
+    def arrays(self, buf: dict) -> tuple:
+        """A window's (plane, *small) in its host buffers."""
+        return (buf["plane"],) + tuple(buf[k] for k in self.small)
+
+
+_PLANE_TRANSPORTS = {
+    # the paycode plane; dirty rows carry each pooled plane's
+    # incremental-fill state across windows AND pipelines (they live with
+    # it)
+    "kmv": _PlaneTransport(
+        name="kmv", small=("mvk",),
+        buffers=lambda lead, Y, X, nb, K: dict(
+            plane=np.zeros(lead + (Y, X), dtype=np.uint32),
+            mvk=np.zeros(lead + (K, 2), dtype=np.int32),
+            dirty=np.zeros(lead + (nb + 1,), dtype=np.int32)),
+        decode=lambda dec, src, buf, i, K: dec.decompress_kmv(
+            src, dec.is_key_frame(src), buf["plane"][i], buf["mvk"][i],
+            K=K, dirty=buf["dirty"][i]),
+        full_frame=lambda pc, mvk: _full_frame(pc),
+        decode_batch=sp_recon.decode_batch_kmv,
+        decode_compact=sp_recon.decode_sequence_kmv_compact,
+        decode_model=sp_recon.decode_batch_kmv_model,
+        make_step=make_sp_decode_step_kmv, single_compact=True),
+    # a plane that holds only data-rect pixels, the block structure in
+    # bcode/rloc; a frame overwrites the whole frame when every block has
+    # code 1 and the rect (0, 0, 16, 16)
+    "bc": _PlaneTransport(
+        name="bc", small=("bcode", "rloc", "mvk"),
+        buffers=lambda lead, Y, X, nb, K: dict(
+            plane=np.zeros(lead + (Y, X), dtype=np.uint32),
+            mvk=np.zeros(lead + (K, 2), dtype=np.int32),
+            bcode=np.zeros(lead + (nb,), dtype=np.uint8),
+            rloc=np.zeros(lead + (nb, 4), dtype=np.uint8)),
+        decode=lambda dec, src, buf, i, K: dec.decompress_bc(
+            src, dec.is_key_frame(src), buf["plane"][i], buf["mvk"][i],
+            buf["bcode"][i], buf["rloc"][i], K=K),
+        full_frame=lambda plane, bcode, rloc, mvk: (
+            bool((bcode == 1).all())
+            and bool((rloc == (0, 0, 16, 16)).all())),
+        decode_batch=sp_recon.decode_batch_bc,
+        decode_compact=sp_recon.decode_sequence_bc_compact,
+        decode_model=sp_recon.decode_batch_bc_model,
+        make_step=make_sp_decode_step_bc, single_compact=False),
+}
 
 
 def _trim_window(out: dict, n: int) -> dict:
@@ -412,6 +500,8 @@ class VideoIngestPipeline:
             self.device = self.cfg.mesh.device
         self._model_dtype = getattr(torch, self.cfg.model_dtype)
         self._carry: Optional[torch.Tensor] = None
+        # pooled host buffers checked out by this pipeline, by pool key
+        self._bufs: dict = {}
         if self.cfg.sp_device_path == "lane":
             with TRACE.span("jsp.demux"):
                 self._init_lane(sources)
@@ -559,7 +649,7 @@ class VideoIngestPipeline:
             G = self._gop_group
             from .. import native as _nat
             if (G > 1 and self.info.codec == CodecType.SCREENPRESSOR
-                    and self.cfg.sp_device_path in ("kmv", "bc")
+                    and self.cfg.sp_device_path in _PLANE_TRANSPORTS
                     and _nat.available()):
                 # gop-axis grouping: G keyframe-led windows a sharded
                 # [B, G, T] dispatch
@@ -614,17 +704,20 @@ class VideoIngestPipeline:
             return self._decode_sp_window(chunk, start)
         return self._decode_msv1_window(chunk, start)
 
+    def _buffers(self, key: tuple, build) -> dict:
+        """The pooled host buffers under `key` (with the batch's shape),
+        checked out by this pipeline until its iterator finishes."""
+        key = key + self._buf_key
+        if key not in self._bufs:
+            self._bufs[key] = _pool_acquire(key, build)
+        return self._bufs[key]
+
     def _release_buffers(self):
         # uploads are blocking copies (device.to_device), so no device work
         # still reads these host pages
-        for attr, key in (("_spbuf", ("sp",)), ("_kmvbuf", ("kmv",)),
-                          ("_kmvgbuf", ("kmvg", self._gop_group)),
-                          ("_sparsebuf", ("sparse",)), ("_bcbuf", ("bc",)),
-                          ("_bcgbuf", ("bcg", self._gop_group))):
-            buf = getattr(self, attr, None)
-            if buf is not None:
-                _pool_release(key + self._buf_key, buf)
-                setattr(self, attr, None)
+        for key, buf in self._bufs.items():
+            _pool_release(key, buf)
+        self._bufs = {}
 
     @property
     def _buf_key(self):
@@ -681,43 +774,21 @@ class VideoIngestPipeline:
                 return self._decode_sp_window_sparse_native(chunk, start,
                                                             decs)
             return self._decode_sp_window_sparse(chunk, start, decs)
-        if self.cfg.sp_device_path == "bc":
-            return self._decode_sp_window_bc(chunk, start, decs)
-        if self.cfg.sp_device_path == "kmv" and self._sp_native:
-            # the native decoder emits the kmv transport during decode
-            if getattr(self, "_kmvbuf", None) is None:
-                # dirty rows carry each pooled plane's incremental-fill
-                # state across windows AND pipelines (they live with it)
-                self._kmvbuf = _pool_acquire(
-                    ("kmv",) + self._buf_key, lambda: dict(
-                        pc=np.zeros((B, T, Y, X), dtype=np.uint32),
-                        mvk=np.zeros((B, T, K, 2), dtype=np.int32),
-                        dirty=np.zeros((B, T, nb + 1), dtype=np.int32)))
-            pc, mvk = self._kmvbuf["pc"], self._kmvbuf["mvk"]
-            dirty = self._kmvbuf["dirty"]
+        tr = _PLANE_TRANSPORTS.get(self.cfg.sp_device_path)
+        if tr is not None and self._sp_native:
+            # the native decoder emits the transport during decode
+            buf = self._plane_buffers(tr, (B, T))
             changed = np.zeros((B, T), dtype=bool)
             sig = np.zeros((B, T), dtype=bool)
             with TRACE.span("jsp.entropy"):
-                for b, frames in enumerate(chunk):
-                    dec = decs[b]
-                    for t, src in enumerate(frames):
-                        changed[b, t], sig[b, t] = self._guard(
-                            b, lambda: dec.decompress_kmv(
-                                src, dec.is_key_frame(src), pc[b, t],
-                                mvk[b, t], K=K, dirty=dirty[b, t]),
-                            default=(False, False))
-            return self._kmv_route(pc, mvk, changed, sig, start)
+                self._decode_planes(tr, buf, chunk, changed, sig)
+            return self._plane_route(tr, tr.arrays(buf), changed, sig, start)
+        if self.cfg.sp_device_path == "bc":
+            return self._decode_sp_window_bc(chunk, start, decs)
         # command capture (bts/mv/rect + the decoded frame as payload) by
         # the native decoder or the pure-Python oracle; window buffers are
         # reused across iterations
-        if getattr(self, "_spbuf", None) is None:
-            self._spbuf = _pool_acquire(("sp",) + self._buf_key, lambda: dict(
-                bts=np.zeros((B, T, nb), dtype=np.int32),
-                mv=np.zeros((B, T, nb, 2), dtype=np.int32),
-                rect=np.zeros((B, T, nb, 4), dtype=np.int32),
-                payload=np.zeros((B, T, Y, X), dtype=np.uint32),
-            ))
-        buf = self._spbuf
+        buf = self._sp_buffers(B, T, Y, X, nb)
         bts, mv, rect, payload = buf["bts"], buf["mv"], buf["rect"], buf["payload"]
         changed = np.zeros((B, T), dtype=bool)
         sig = np.zeros((B, T), dtype=bool)
@@ -769,10 +840,51 @@ class VideoIngestPipeline:
                 pcs.append(pc_b)
                 mvks.append(mvk_b)
             pc, mvk = np.stack(pcs), np.stack(mvks)
-        return self._kmv_route(pc, mvk, changed, sig, start)
+        return self._plane_route(_PLANE_TRANSPORTS["kmv"], (pc, mvk), changed,
+                                 sig, start)
+
+    def _sp_buffers(self, B, T, Y, X, nb) -> dict:
+        """The pooled window of captured block commands and payload."""
+        return self._buffers(("sp",), lambda: dict(
+            bts=np.zeros((B, T, nb), dtype=np.int32),
+            mv=np.zeros((B, T, nb, 2), dtype=np.int32),
+            rect=np.zeros((B, T, nb, 4), dtype=np.int32),
+            payload=np.zeros((B, T, Y, X), dtype=np.uint32),
+        ))
+
+    def _plane_buffers(self, tr: _PlaneTransport, lead: tuple) -> dict:
+        """The pooled host buffers of a plane transport's window, lead
+        (B, T) or, grouped, (B, G, T)."""
+        vi = self.info
+        nb = ((vi.width + 15) // 16) * ((vi.height + 15) // 16)
+        # grouped buffers are pooled apart, under G
+        key = (tr.name,) if len(lead) == 2 else (tr.name + "g", lead[1])
+        return self._buffers(key, lambda: tr.buffers(
+            lead, vi.height, vi.width, nb, self.cfg.kmv_k))
+
+    def _decode_planes(self, tr: _PlaneTransport, buf, chunk, changed, sig,
+                       *g) -> None:
+        """The native host stage of a window: frame t of stream b decoded
+        into the buffers at [b, *g, t], its changed and significant flags
+        into `changed` and `sig` there."""
+        K = self.cfg.kmv_k
+        decs = self._sp_decoders()
+        for b, frames in enumerate(chunk):
+            dec = decs[b]
+            for t, src in enumerate(frames):
+                i = (b, *g, t)
+                changed[i], sig[i] = self._guard(
+                    b, lambda: tr.decode(dec, src, buf, i, K),
+                    default=(False, False))
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return to_device(a, self.device)
+
+    def _model_kw(self) -> dict:
+        """The model emission's options, for the fused model scans."""
+        return dict(dtype=self._model_dtype,
+                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
+                    packed=self.cfg.model_packed)
 
     def _count_scan(self, scanned: int, changed=None, first: int = 0
                     ) -> None:
@@ -806,28 +918,26 @@ class VideoIngestPipeline:
         self._carry = frames[:, -1]
         return self._emit(frames, signif, start)
 
-    def _kmv_route(self, pc, mvk, changed, sig, start) -> dict:
-        """Dispatch an assembled kmv window (pc [B,T,Y,X], mvk [B,T,K,2],
-        changed/sig [B,T]) to the sharded mesh step, still-elided scans,
-        fused model emission, or the dense batch scan.  Shared by both host
-        branches."""
-        B = pc.shape[0]
+    def _plane_route(self, tr: _PlaneTransport, arrays, changed, sig,
+                     start) -> dict:
+        """Dispatch an assembled plane-transport window (arrays = (plane
+        [B,T,Y,X], *small [B,T,...]), changed/sig [B,T]) to the
+        still-elided scans, the sharded mesh step, fused model emission,
+        or the dense batch scan.  Shared by both host branches."""
+        B = changed.shape[0]
         init = self._carry_init(B)
-        if self.cfg.still_elision and (self.cfg.mesh is not None or B > 1):
-            return self._kmv_elided(pc, mvk, changed, sig, init, start)
-        if self.cfg.mesh is not None:
-            self._count_scan(changed.size)
-            with TRACE.span("jsp.scan"):
-                frames = self._sharded_kmv_step(pc, mvk, changed)
-            self._carry = frames[:, -1]
-            return self._emit(frames, self._put(sig), start)
-        if self.cfg.still_elision:  # single stream: exact compact scan
+        mesh = self.cfg.mesh
+        if self.cfg.still_elision and (
+                mesh is not None or B > 1 or not tr.single_compact):
+            return self._plane_elided(tr, arrays, changed, sig, init, start)
+        if self.cfg.still_elision:  # single kmv stream: exact compact scan
+            pc, mvk = arrays
             with TRACE.span("jsp.compact"):
                 pcc, mvkc, outmap = sp_recon.compact_changed(
                     pc[0], mvk[0], changed[0])
             self._count_scan(pcc.shape[0], changed)
             with TRACE.span("jsp.scan"):
-                frames = sp_recon.decode_sequence_kmv_compact(
+                frames = tr.decode_compact(
                     init[0], self._put(pcc), self._put(mvkc))[None]
             self._carry = frames[:, -1] if pcc.shape[0] else init
             out = {"start_frame": start, "significant": self._put(sig),
@@ -836,23 +946,28 @@ class VideoIngestPipeline:
                 out["model_input"] = self._model_tensors(frames)
             return out
         self._count_scan(changed.size)
+        if mesh is not None:
+            with TRACE.span("jsp.scan"):
+                frames = self._sharded_plane_step(tr, arrays[0], arrays[1:],
+                                                  changed)
+            self._carry = frames[:, -1]
+            return self._emit(frames, self._put(sig), start)
         if not self.cfg.emit_frames and self.cfg.emit_model_input:
             with TRACE.span("jsp.scan"):
-                carry, model = sp_recon.decode_batch_kmv_model(
-                    init, self._put(pc), self._put(mvk), self._put(changed),
-                    dtype=self._model_dtype,
-                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
-                    packed=self.cfg.model_packed)
+                carry, model = tr.decode_model(
+                    init, *map(self._put, arrays), self._put(changed),
+                    **self._model_kw())
             self._carry = carry
             return {"start_frame": start, "significant": self._put(sig),
                     "model_input": model}
         with TRACE.span("jsp.scan"):
-            frames = sp_recon.decode_batch_kmv(
-                init, self._put(pc), self._put(mvk), self._put(changed))
+            frames = tr.decode_batch(init, *map(self._put, arrays),
+                                     self._put(changed))
         self._carry = frames[:, -1]
         return self._emit(frames, self._put(sig), start)
 
-    def _kmv_elided(self, pc, mvk, changed, sig, init, start) -> dict:
+    def _plane_elided(self, tr: _PlaneTransport, arrays, changed, sig, init,
+                      start) -> dict:
         """Batched still-elision: stills never enter the device scan.
 
         "frames_u32" (or "model_input" when fused) is a FLAT stack of
@@ -860,39 +975,38 @@ class VideoIngestPipeline:
         window's carry-in frame).  Two layouts feed it, chosen per window:
 
           * CONCAT — when every stream's first compacted slot fully
-            overwrites the frame (keyframe-led windows, checked on the
-            paycode ptype plane), all streams' compacted frames
+            overwrites the frame (keyframe-led windows, checked by the
+            transport's full_frame), all streams' compacted frames
             concatenate into ONE sequential scan with zero padding;
           * PADDED — otherwise (and always under a mesh), the per-stream
             masked scans of bucketed length Cpad run as one batched scan
             (or shard over the mesh's dp axis) and the [B, Cpad] result is
             flattened with per-stream offsets.
 
-        The compaction plans on frame indices, and the changed planes go
-        straight from `pc` into a device stack (upload_changed_rows): the
+        The compaction plans on frame indices, the small arrays are
+        gathered by the plan's rows, and the changed planes go straight
+        from the window into a device stack (upload_changed_rows): the
         scan's on one device, each slot's on its own device under a mesh."""
-        B, T = pc.shape[:2]
-        vi = self.info
+        plane, small = arrays[0], arrays[1:]
+        B, T = changed.shape
         mesh = self.cfg.mesh
         with TRACE.span("jsp.compact"):
-            # rows: [B, Cpad] indices of the changed frames in pc
+            # rows: [B, Cpad] indices of the changed frames in the window
             rows, mvkc, valid, outmap = sp_recon.compact_changed_batch(
-                np.tile(np.arange(T), (B, 1)), mvk, changed)
+                np.tile(np.arange(T), (B, 1)), small[-1], changed)
+            smallc = [_gather_rows(a, rows, valid)
+                      for a in small[:-1]] + [mvkc]
         cpad = rows.shape[1]
         counts = valid.sum(axis=1).astype(np.int64)
         out = {"start_frame": start, "significant": self._put(sig)}
         if cpad == 0:  # all streams all-stills: nothing to decode
             self._count_scan(0, changed)
-            out["outmap"] = outmap  # all -1
-            if self.cfg.emit_frames:
-                out["frames_u32"] = torch.zeros(
-                    (0, vi.height, vi.width), dtype=torch.int32,
-                    device=self.device)
-            return out
+            return self._all_stills(out, outmap, self.cfg.emit_frames)
 
         with TRACE.span("jsp.prep"):
             full_first = mesh is None and all(
-                counts[b] == 0 or _full_frame(pc[b, rows[b, 0]])
+                counts[b] == 0
+                or tr.full_frame(*(a[b, rows[b, 0]] for a in arrays))
                 for b in range(B))
         self.stats["concat_windows" if full_first else "padded_windows"] += 1
         if full_first:
@@ -900,8 +1014,8 @@ class VideoIngestPipeline:
             with TRACE.span("jsp.prep"):
                 offsets = np.zeros(B, dtype=np.int64)
                 np.cumsum(counts[:-1], out=offsets[1:])
-                cat_mv = np.concatenate(
-                    [mvkc[b, : counts[b]] for b in range(B)])
+                cats = [np.concatenate([a[b, : counts[b]] for b in range(B)])
+                        for a in smallc]
                 outmap_flat = np.where(
                     outmap >= 0, outmap + offsets[:, None],
                     -1).astype(np.int32)
@@ -909,229 +1023,90 @@ class VideoIngestPipeline:
             # (fused model-only emission still decodes the frame stack
             # here: the per-stream carries come from frame rows)
             with TRACE.span("jsp.scan"):
-                frames = sp_recon.decode_sequence_kmv_compact(
-                    init[0], upload_changed_rows(pc, rows, counts,
+                frames = tr.decode_compact(
+                    init[0], upload_changed_rows(plane, rows, counts,
                                                  self.device),
-                    self._put(cat_mv))
+                    *map(self._put, cats))
             ends = offsets + counts  # exclusive
             self._carry = torch.stack([
                 frames[int(ends[b]) - 1] if counts[b] else init[b]
                 for b in range(B)])
-            out["outmap"] = outmap_flat
-            if self.cfg.emit_frames:
-                out["frames_u32"] = frames
-            if self.cfg.emit_model_input:
-                out["model_input"] = self._model_tensors(frames)
-            return out
+            return self._emit_flat(out, outmap_flat, frames)
 
         # padded layout (mid-GOP windows or a mesh): [B, Cpad] → flat
         with TRACE.span("jsp.prep"):
-            outmap_flat = np.where(
-                outmap >= 0,
-                outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
-                -1).astype(np.int32)
-        out["outmap"] = outmap_flat
+            outmap_flat = _padded_outmap(outmap, cpad)
         self._count_scan(valid.size, changed)
         if mesh is None and not self.cfg.emit_frames and \
                 self.cfg.emit_model_input:
             # fused: the compacted masked scan emits ONLY model tensors
             with TRACE.span("jsp.scan"):
-                carry, model = sp_recon.decode_batch_kmv_model(
-                    init, upload_changed_rows(pc, rows, counts, self.device,
-                                              cpad),
-                    self._put(mvkc), self._put(valid),
-                    dtype=self._model_dtype,
-                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
-                    packed=self.cfg.model_packed)
+                carry, model = tr.decode_model(
+                    init, upload_changed_rows(plane, rows, counts,
+                                              self.device, cpad),
+                    *map(self._put, smallc), self._put(valid),
+                    **self._model_kw())
             self._carry = carry
+            out["outmap"] = outmap_flat
             out["model_input"] = model.reshape((B * cpad,) + model.shape[2:])
             return out
         with TRACE.span("jsp.scan"):
             if mesh is not None:
-                frames = self._sharded_kmv_step(SlotBuilt(
-                    (B, 1, cpad) + pc.shape[2:],
+                frames = self._sharded_plane_step(tr, SlotBuilt(
+                    (B, 1, cpad) + plane.shape[2:],
                     lambda sl, _, dev: upload_changed_rows(
-                        pc[sl], rows[sl], counts[sl], dev, cpad)[:, None]),
-                    mvkc, valid)
+                        plane[sl], rows[sl], counts[sl], dev, cpad)[:, None]),
+                    smallc, valid)
             else:
-                frames = sp_recon.decode_batch_kmv(
-                    init, upload_changed_rows(pc, rows, counts, self.device,
-                                              cpad),
-                    self._put(mvkc), self._put(valid))
+                frames = tr.decode_batch(
+                    init, upload_changed_rows(plane, rows, counts,
+                                              self.device, cpad),
+                    *map(self._put, smallc), self._put(valid))
         self._carry = frames[:, -1]
-        flat = frames.reshape((-1,) + frames.shape[2:])
-        if self.cfg.emit_frames:
-            out["frames_u32"] = flat
-        if self.cfg.emit_model_input:
-            out["model_input"] = self._model_tensors(flat)
-        return out
+        return self._emit_flat(out, outmap_flat,
+                               frames.reshape((-1,) + frames.shape[2:]))
 
     # -- the bc transport ------------------------------------------------------
 
     def _decode_sp_window_bc(self, chunk, start, decs) -> dict:
-        """bc transport host stage: the native decoder fills ONLY data-rect
-        plane pixels of a pooled window (no motion fills, no clears, no
-        dirty state); the pure-Python oracle branch builds the transport
-        with prepare_bc.  The block structure rides bcode/rloc."""
+        """bc transport, pure-Python oracle branch: the oracle captures each
+        frame's commands and decoded frame, and prepare_bc builds the
+        transport into the pooled window.  (The native branch, which fills
+        ONLY data-rect plane pixels, is _decode_planes.)"""
         vi = self.info
         X, Y = vi.width, vi.height
         B, T = len(chunk), self.cfg.window
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
         K = self.cfg.kmv_k
-        if getattr(self, "_bcbuf", None) is None:
-            self._bcbuf = _pool_acquire(
-                ("bc",) + self._buf_key, lambda: dict(
-                    plane=np.zeros((B, T, Y, X), dtype=np.uint32),
-                    mvk=np.zeros((B, T, K, 2), dtype=np.int32),
-                    bcode=np.zeros((B, T, nb), dtype=np.uint8),
-                    rloc=np.zeros((B, T, nb, 4), dtype=np.uint8)))
-        buf = self._bcbuf
-        plane, mvk = buf["plane"], buf["mvk"]
-        bcode, rloc = buf["bcode"], buf["rloc"]
+        tr = _PLANE_TRANSPORTS["bc"]
+        buf = self._plane_buffers(tr, (B, T))
         changed = np.zeros((B, T), dtype=bool)
         sig = np.zeros((B, T), dtype=bool)
         with TRACE.span("jsp.entropy"):
-            if self._sp_native:
-                for b, frames in enumerate(chunk):
-                    dec = decs[b]
-                    for t, src in enumerate(frames):
-                        changed[b, t], sig[b, t] = self._guard(
-                            b, lambda: dec.decompress_bc(
-                                src, dec.is_key_frame(src), plane[b, t],
-                                mvk[b, t], bcode[b, t], rloc[b, t], K=K),
-                            default=(False, False))
-            else:
-                for b, frames in enumerate(chunk):
-                    dec = decs[b]
-                    bts = np.zeros((T, nb), dtype=np.int32)
-                    mv = np.zeros((T, nb, 2), dtype=np.int32)
-                    rect = np.zeros((T, nb, 4), dtype=np.int32)
-                    payload = np.zeros((T, Y, X), dtype=np.uint32)
-                    for t, src in enumerate(frames):
-                        got = self._guard(b, lambda: _oracle_decode_step(
-                            dec, src, dec.is_key_frame(src), X, Y))
-                        if got is None:  # quarantined: changed stays False
-                            continue
-                        sig[b, t], cap = got
-                        # None until the stream's first real frame: the plane
-                        # row stays as it is (changed gating never reads it)
-                        data = dec.previous_frame()
-                        if data is not None:
-                            payload[t] = data.reshape(Y, X)
-                        bts[t], mv[t], rect[t] = (cap["bts"], cap["mv"],
-                                                  cap["rect"])
-                        changed[b, t] = cap["changed"]
-                    (plane[b], bcode[b], rloc[b],
-                     mvk[b]) = sp_recon.prepare_bc(bts, mv, rect, payload,
-                                                   K=K)
-        return self._bc_route(plane, bcode, rloc, mvk, changed, sig, start)
-
-    def _bc_route(self, plane, bcode, rloc, mvk, changed, sig, start) -> dict:
-        """Dispatch an assembled bc window to still-elided scans, the
-        sharded mesh step, fused model emission, or the dense batch scan
-        (as _kmv_route does)."""
-        B = plane.shape[0]
-        init = self._carry_init(B)
-        if self.cfg.still_elision:
-            return self._bc_elided(plane, bcode, rloc, mvk, changed, sig,
-                                   init, start)
-        self._count_scan(changed.size)
-        if self.cfg.mesh is not None:
-            with TRACE.span("jsp.scan"):
-                frames = self._sharded_bc_step(plane, bcode, rloc, mvk,
-                                               changed)
-            self._carry = frames[:, -1]
-            return self._emit(frames, self._put(sig), start)
-        arrays = (plane, bcode, rloc, mvk, changed)
-        if not self.cfg.emit_frames and self.cfg.emit_model_input:
-            with TRACE.span("jsp.scan"):
-                carry, model = sp_recon.decode_batch_bc_model(
-                    init, *map(self._put, arrays), dtype=self._model_dtype,
-                    downscale=self.cfg.model_downscale, bpp16=self._bpp16,
-                    packed=self.cfg.model_packed)
-            self._carry = carry
-            return {"start_frame": start, "significant": self._put(sig),
-                    "model_input": model}
-        with TRACE.span("jsp.scan"):
-            frames = sp_recon.decode_batch_bc(init, *map(self._put, arrays))
-        self._carry = frames[:, -1]
-        return self._emit(frames, self._put(sig), start)
-
-    def _bc_elided(self, plane, bcode, rloc, mvk, changed, sig, init,
-                   start) -> dict:
-        """Still-elision for the bc transport: _kmv_elided's output
-        contract (flat row stack + outmap), the CONCAT layout when every
-        stream's first compacted slot overwrites the whole frame (code 1,
-        rect (0, 0, 16, 16) in every block) and there is no mesh, PADDED
-        otherwise."""
-        B = plane.shape[0]
-        vi = self.info
-        with TRACE.span("jsp.compact"):
-            (plc, bcc, rlc, mvkc), valid, outmap = \
-                sp_recon.compact_arrays_batch((plane, bcode, rloc, mvk),
-                                              changed)
-        cpad = plc.shape[1]
-        counts = valid.sum(axis=1).astype(np.int64)
-        out = {"start_frame": start, "significant": self._put(sig)}
-        if cpad == 0:  # all streams all-stills: nothing to decode
-            self._count_scan(0, changed)
-            out["outmap"] = outmap
-            if self.cfg.emit_frames:
-                out["frames_u32"] = torch.zeros(
-                    (0, vi.height, vi.width), dtype=torch.int32,
-                    device=self.device)
-            return out
-        with TRACE.span("jsp.prep"):
-            full_first = self.cfg.mesh is None and all(
-                counts[b] == 0
-                or (bool((bcc[b, 0] == 1).all())
-                    and bool((rlc[b, 0] == (0, 0, 16, 16)).all()))
-                for b in range(B))
-        self.stats["concat_windows" if full_first else "padded_windows"] += 1
-        if full_first:
-            with TRACE.span("jsp.prep"):
-                offsets = np.zeros(B, dtype=np.int64)
-                np.cumsum(counts[:-1], out=offsets[1:])
-                cats = [np.concatenate([a[b, : counts[b]] for b in range(B)])
-                        for a in (plc, bcc, rlc, mvkc)]
-                outmap_flat = np.where(
-                    outmap >= 0, outmap + offsets[:, None],
-                    -1).astype(np.int32)
-            self._count_scan(cats[0].shape[0], changed)
-            with TRACE.span("jsp.scan"):
-                frames = sp_recon.decode_sequence_bc_compact(
-                    init[0], *map(self._put, cats))
-            ends = offsets + counts  # exclusive
-            self._carry = torch.stack([
-                frames[int(ends[b]) - 1] if counts[b] else init[b]
-                for b in range(B)])
-            out["outmap"] = outmap_flat
-            if self.cfg.emit_frames:
-                out["frames_u32"] = frames
-            if self.cfg.emit_model_input:
-                out["model_input"] = self._model_tensors(frames)
-            return out
-        with TRACE.span("jsp.prep"):
-            outmap_flat = np.where(
-                outmap >= 0,
-                outmap + (np.arange(B, dtype=np.int32) * cpad)[:, None],
-                -1).astype(np.int32)
-        out["outmap"] = outmap_flat
-        self._count_scan(valid.size, changed)
-        with TRACE.span("jsp.scan"):
-            if self.cfg.mesh is not None:
-                frames = self._sharded_bc_step(plc, bcc, rlc, mvkc, valid)
-            else:
-                frames = sp_recon.decode_batch_bc(
-                    init, *(self._put(a)
-                            for a in (plc, bcc, rlc, mvkc, valid)))
-        self._carry = frames[:, -1]
-        flat = frames.reshape((-1,) + frames.shape[2:])
-        if self.cfg.emit_frames:
-            out["frames_u32"] = flat
-        if self.cfg.emit_model_input:
-            out["model_input"] = self._model_tensors(flat)
-        return out
+            for b, frames in enumerate(chunk):
+                dec = decs[b]
+                bts = np.zeros((T, nb), dtype=np.int32)
+                mv = np.zeros((T, nb, 2), dtype=np.int32)
+                rect = np.zeros((T, nb, 4), dtype=np.int32)
+                payload = np.zeros((T, Y, X), dtype=np.uint32)
+                for t, src in enumerate(frames):
+                    got = self._guard(b, lambda: _oracle_decode_step(
+                        dec, src, dec.is_key_frame(src), X, Y))
+                    if got is None:  # quarantined: changed stays False
+                        continue
+                    sig[b, t], cap = got
+                    # None until the stream's first real frame: the plane
+                    # row stays as it is (changed gating never reads it)
+                    data = dec.previous_frame()
+                    if data is not None:
+                        payload[t] = data.reshape(Y, X)
+                    bts[t], mv[t], rect[t] = (cap["bts"], cap["mv"],
+                                              cap["rect"])
+                    changed[b, t] = cap["changed"]
+                (buf["plane"][b], buf["bcode"][b], buf["rloc"][b],
+                 buf["mvk"][b]) = sp_recon.prepare_bc(bts, mv, rect, payload,
+                                                      K=K)
+        return self._plane_route(tr, tr.arrays(buf), changed, sig, start)
 
     # -- the mesh --------------------------------------------------------------
 
@@ -1149,42 +1124,29 @@ class VideoIngestPipeline:
         """The pipeline's sharded step `make(mesh, cfg)`, made once and kept
         under `attr`."""
         if getattr(self, attr, None) is None:
-            from .batch import DecodeConfig
-
             vi = self.info
             setattr(self, attr, make(self.cfg.mesh, DecodeConfig(
                 height=vi.height, width=vi.width, emit_model_input=False,
                 **cfg_kw)))
         return getattr(self, attr)
 
-    def _sharded_kmv_step(self, pc, mvk, changed):
-        """kmv windows over the mesh's dp axis: [B, T, ...] → [B, G=1, T,
-        ...] rows, each slot scanning its own streams' P-chains.  `pc` is
-        the host paycode window, or a mesh.SlotBuilt [B, 1, T, Y, X] whose
-        slots upload their own rows."""
-        from .batch import make_sp_decode_step_kmv
-
+    def _sharded_plane_step(self, tr: _PlaneTransport, plane, small,
+                            changed):
+        """Plane-transport windows over the mesh's dp axis: [B, T, ...] →
+        [B, G=1, T, ...] rows, each slot scanning its own streams'
+        P-chains.  `plane` is the host window, or a mesh.SlotBuilt [B, 1,
+        T, Y, X] whose slots upload their own rows."""
         if self._gop_group != 1:
             raise ValueError(
-                "gop>1 meshes route through the window-grouping path (kmv + "
-                "native host stage); this transport shards dp only")
-        step = self._sharded_step("_kmv_sharded", make_sp_decode_step_kmv)
-        init = self._carry_init(pc.shape[0])
-        if not isinstance(pc, SlotBuilt):
-            pc = pc[:, None]
-        return step(init[:, None], pc, mvk[:, None], changed[:, None])[:, 0]
-
-    def _sharded_bc_step(self, plane, bcode, rloc, mvk, changed):
-        """bc windows over the mesh's dp axis."""
-        from .batch import make_sp_decode_step_bc
-
-        if self._gop_group != 1:
-            raise ValueError(
-                "gop>1 grouping rides the kmv path; bc shards dp only")
-        step = self._sharded_step("_bc_sharded", make_sp_decode_step_bc)
-        init = self._carry_init(plane.shape[0])
-        return step(init[:, None], plane[:, None], bcode[:, None],
-                    rloc[:, None], mvk[:, None], changed[:, None])[:, 0]
+                "gop>1 meshes route through the window-grouping path (the "
+                "native host stage); a window of a plane transport shards "
+                "dp only")
+        step = self._sharded_step(f"_{tr.name}_sharded", tr.make_step)
+        init = self._carry_init(changed.shape[0])
+        if not isinstance(plane, SlotBuilt):
+            plane = plane[:, None]
+        return step(init[:, None], plane, *(a[:, None] for a in small),
+                    changed[:, None])[:, 0]
 
     def _decode_sp_window_group(self, chunks, starts) -> list[dict]:
         """Decode G keyframe-led windows in ONE sharded [B, G, T] dispatch
@@ -1192,65 +1154,29 @@ class VideoIngestPipeline:
         with a keyframe (or be stream-end padding): keyframes make windows
         independent decode chains, so no slot waits on another.  → one
         output dict per real window."""
-        from .batch import make_sp_decode_step_bc, make_sp_decode_step_kmv
-
         vi = self.info
         X, Y = vi.width, vi.height
         G = self._gop_group
         B, T = len(chunks[0]), self.cfg.window
-        K = self.cfg.kmv_k
         decs = self._sp_decoders()
         if self.cfg.still_elision:
             raise ValueError(
                 "still_elision with a gop>1 mesh is not supported yet")
-        use_bc = self.cfg.sp_device_path == "bc"
-        nb = ((X + 15) // 16) * ((Y + 15) // 16)
-        if use_bc:
-            if getattr(self, "_bcgbuf", None) is None:
-                self._bcgbuf = _pool_acquire(
-                    ("bcg", G) + self._buf_key, lambda: dict(
-                        pc=np.zeros((B, G, T, Y, X), dtype=np.uint32),
-                        mvk=np.zeros((B, G, T, K, 2), dtype=np.int32),
-                        bcode=np.zeros((B, G, T, nb), dtype=np.uint8),
-                        rloc=np.zeros((B, G, T, nb, 4), dtype=np.uint8)))
-            buf = self._bcgbuf
-        else:
-            if getattr(self, "_kmvgbuf", None) is None:
-                self._kmvgbuf = _pool_acquire(
-                    ("kmvg", G) + self._buf_key, lambda: dict(
-                        pc=np.zeros((B, G, T, Y, X), dtype=np.uint32),
-                        mvk=np.zeros((B, G, T, K, 2), dtype=np.int32),
-                        dirty=np.zeros((B, G, T, nb + 1), dtype=np.int32)))
-            buf = self._kmvgbuf
-        pc, mvk = buf["pc"], buf["mvk"]
+        tr = _PLANE_TRANSPORTS[self.cfg.sp_device_path]
+        buf = self._plane_buffers(tr, (B, G, T))
         changed = np.zeros((B, G, T), dtype=bool)
         sig = np.zeros((B, G, T), dtype=bool)
         with TRACE.span("jsp.entropy"):
             for g, chunk in enumerate(chunks):
                 for b, frames in enumerate(chunk):
-                    dec = decs[b]
                     if (g > 0 and frames[0]
-                            and not dec.is_key_frame(frames[0])):
+                            and not decs[b].is_key_frame(frames[0])):
                         raise ValueError(
                             "gop>1 mesh requires keyframe-led windows "
                             f"(window @{starts[g]} stream {b} starts "
                             "mid-GOP); align IngestConfig.window with the "
                             "keyframe cadence")
-                    for t, src in enumerate(frames):
-                        if use_bc:
-                            step = lambda: dec.decompress_bc(
-                                src, dec.is_key_frame(src), pc[b, g, t],
-                                mvk[b, g, t], buf["bcode"][b, g, t],
-                                buf["rloc"][b, g, t], K=K)
-                        else:
-                            step = lambda: dec.decompress_kmv(
-                                src, dec.is_key_frame(src), pc[b, g, t],
-                                mvk[b, g, t], K=K, dirty=buf["dirty"][b, g, t])
-                        changed[b, g, t], sig[b, g, t] = self._guard(
-                            b, step, default=(False, False))
-        gstep = (self._sharded_step("_bcg_sharded", make_sp_decode_step_bc)
-                 if use_bc else
-                 self._sharded_step("_kmvg_sharded", make_sp_decode_step_kmv))
+                self._decode_planes(tr, buf, chunk, changed, sig, g)
         # g=0 continues the previous group's carry; g>0 windows are
         # keyframe-led, so zeros are exact (the I-frame paints every pixel)
         rows = B if self._carry is None else self._carry.shape[0]
@@ -1263,12 +1189,9 @@ class VideoIngestPipeline:
         LOG.count("frames.timeline", real)
         LOG.count("frames.scanned", changed.size)
         LOG.count("rows.padded", changed.size - real)
+        step = self._sharded_step(f"_{tr.name}_sharded", tr.make_step)
         with TRACE.span("jsp.scan"):
-            if use_bc:
-                frames = gstep(init, pc, buf["bcode"], buf["rloc"], mvk,
-                               changed)
-            else:
-                frames = gstep(init, pc, mvk, changed)
+            frames = step(init, *tr.arrays(buf), changed)
         n_real = len(starts)
         self._carry = frames[:, n_real - 1, -1]
         return [self._emit(frames[:, g], self._put(sig[:, g]), starts[g])
@@ -1294,14 +1217,7 @@ class VideoIngestPipeline:
         B, T = len(chunk), self.cfg.window
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
         K = self.cfg.kmv_k
-        if getattr(self, "_spbuf", None) is None:
-            self._spbuf = _pool_acquire(("sp",) + self._buf_key, lambda: dict(
-                bts=np.zeros((B, T, nb), dtype=np.int32),
-                mv=np.zeros((B, T, nb, 2), dtype=np.int32),
-                rect=np.zeros((B, T, nb, 4), dtype=np.int32),
-                payload=np.zeros((B, T, Y, X), dtype=np.uint32),
-            ))
-        buf = self._spbuf
+        buf = self._sp_buffers(B, T, Y, X, nb)
         bts, mv, rect, payload = (buf["bts"], buf["mv"], buf["rect"],
                                   buf["payload"])
         changed = np.zeros((B, T), dtype=bool)
@@ -1398,16 +1314,13 @@ class VideoIngestPipeline:
         B, T = len(chunk), self.cfg.window
         nb = ((X + 15) // 16) * ((Y + 15) // 16)
         K = self.cfg.kmv_k
-        if getattr(self, "_sparsebuf", None) is None:
-            self._sparsebuf = _pool_acquire(
-                ("sparse",) + self._buf_key, lambda: dict(
-                    bc=np.zeros((B, T, nb), dtype=np.uint8),
-                    mvk=np.zeros((B, T, K, 2), dtype=np.int32),
-                    tiles=np.zeros((B, T, nb, 16, 16), dtype=np.uint32),
-                    tyx=np.zeros((B, T, nb, 2), dtype=np.int32),
-                    init=np.zeros((B, Y, X), dtype=np.uint32),
-                ))
-        buf = self._sparsebuf
+        buf = self._buffers(("sparse",), lambda: dict(
+            bc=np.zeros((B, T, nb), dtype=np.uint8),
+            mvk=np.zeros((B, T, K, 2), dtype=np.int32),
+            tiles=np.zeros((B, T, nb, 16, 16), dtype=np.uint32),
+            tyx=np.zeros((B, T, nb, 2), dtype=np.int32),
+            init=np.zeros((B, Y, X), dtype=np.uint32),
+        ))
         bc, mvk, tiles, tyx = buf["bc"], buf["mvk"], buf["tiles"], buf["tyx"]
         changed = np.zeros((B, T), dtype=bool)
         sig = np.zeros((B, T), dtype=bool)
@@ -1840,7 +1753,7 @@ class VideoIngestPipeline:
                     "btype", "rect", "mvk", "row_idx"))
                 changed = h["changed"]
                 # still-elision: stills never enter the lane scan (the flat
-                # row stack + outmap contract of _kmv_elided; -1 = the
+                # row stack + outmap contract of _plane_elided; -1 = the
                 # window's carry-in frame)
                 outmap = None
                 if self.cfg.still_elision:
@@ -1849,12 +1762,7 @@ class VideoIngestPipeline:
                             sp_recon.compact_arrays_batch(
                                 (btype, rect, mvk, row_idx), changed)
                     with TRACE.span("jsp.prep"):
-                        cpad = btype.shape[1]
-                        om = np.where(
-                            outmap >= 0,
-                            outmap + (np.arange(B * G, dtype=np.int32)
-                                      * cpad)[:, None],
-                            -1).astype(np.int32)
+                        om = _padded_outmap(outmap, btype.shape[1])
                         # ragged windows: keep only each window's real
                         # frames
                         outmap = np.stack([
@@ -1869,12 +1777,11 @@ class VideoIngestPipeline:
                 LOG.count("frames.scanned", changed.size)
                 LOG.count("rows.padded", changed.size - real)
                 if changed.shape[1] == 0:  # all streams all-stills
-                    out = {"start_frame": int(bases[wi]),
-                           "significant": self._put(h["sig"]),
-                           "outmap": outmap,
-                           "frames_u32": torch.zeros(
-                               (0, Y, X), dtype=torch.int32,
-                               device=self.device)}
+                    # (as the reference's lane path: the empty row stack
+                    # whatever emit_frames says)
+                    out = self._all_stills(
+                        {"start_frame": int(bases[wi]),
+                         "significant": self._put(h["sig"])}, outmap, True)
                 else:
                     cmds = (btype, rect, mvk, h["row_table"], row_idx,
                             changed)
@@ -1899,12 +1806,9 @@ class VideoIngestPipeline:
                     out = {"start_frame": int(bases[wi]),
                            "significant": self._put(h["sig"])}
                     if outmap is not None:
-                        out["outmap"] = outmap
-                        flat = frames.reshape((-1,) + frames.shape[2:])
-                        if self.cfg.emit_frames:
-                            out["frames_u32"] = flat
-                        if self.cfg.emit_model_input:
-                            out["model_input"] = self._model_tensors(flat)
+                        self._emit_flat(
+                            out, outmap,
+                            frames.reshape((-1,) + frames.shape[2:]))
                     else:
                         # [B*G, Tpad, ...] → [B, G*T, ...]: stream-major
                         # entries read as one window; ragged
@@ -1946,6 +1850,27 @@ class VideoIngestPipeline:
             return to_model_input(
                 frames, dtype=self._model_dtype,
                 downscale=self.cfg.model_downscale, bpp16=self._bpp16)
+
+    def _all_stills(self, out: dict, outmap, emit_frames: bool) -> dict:
+        """An elided window whose streams are all stills: nothing is
+        decoded, outmap (all -1) indexes an empty row stack."""
+        out["outmap"] = outmap
+        if emit_frames:
+            vi = self.info
+            out["frames_u32"] = torch.zeros(
+                (0, vi.height, vi.width), dtype=torch.int32,
+                device=self.device)
+        return out
+
+    def _emit_flat(self, out: dict, outmap, flat) -> dict:
+        """An elided window's emission: the flat row stack `flat` and the
+        outmap [B, T] that indexes it (-1 = the carry-in frame)."""
+        out["outmap"] = outmap
+        if self.cfg.emit_frames:
+            out["frames_u32"] = flat
+        if self.cfg.emit_model_input:
+            out["model_input"] = self._model_tensors(flat)
+        return out
 
     def _emit(self, frames, signif, start) -> dict:
         out = {"start_frame": start, "frames_u32": frames,

@@ -143,16 +143,19 @@ EMITS = {"frames": dict(emit_model_input=False),
          "model_only": dict(emit_frames=False, model_downscale=2)}
 
 
+@pytest.mark.parametrize("transport", ["kmv", "bc"])
 @pytest.mark.parametrize("native", [True, False])
 @pytest.mark.parametrize("emit", sorted(EMITS))
 @pytest.mark.parametrize("batch", sorted(ELIDED_BATCHES))
 def test_elided_rows_upload_straight_from_the_window(batch, emit, native,
-                                                     monkeypatch):
-    """One device, B > 1, still elision: the windows and stats equal the
-    reference's; compact_changed_batch plans on a [B, T] frame-index
-    array, never on planes; every plane reaches the device through
-    to_device_into as a view of the window's pc, in runs of consecutive
-    frames; to_device carries no plane; the pad rows are never uploaded."""
+                                                     transport, monkeypatch):
+    """One device, B > 1, still elision, both plane transports: the
+    windows and stats equal the reference's; compact_changed_batch plans
+    on a [B, T] frame-index array, never on planes; every plane reaches
+    the device through to_device_into as a view of the window's plane, in
+    runs of consecutive frames; to_device carries no plane (bc's bcode and
+    rloc go gathered by the plan's rows); the pad rows are never
+    uploaded."""
     from jsplayer_tpu_torch.utils.logging import LOG
 
     if not native:
@@ -186,7 +189,7 @@ def test_elided_rows_upload_straight_from_the_window(batch, emit, native,
     monkeypatch.setattr(P, "to_device", to_dev)
     before = LOG.counters.copy()
     jp, pp = pipelines(sources, window=window, still_elision=True,
-                       **EMITS[emit])
+                       sp_device_path=transport, **EMITS[emit])
     assert_windows_equal(list(jp), list(pp))
     assert pp.stats == jp.stats == stats
     assert pp._sp_native is native

@@ -73,6 +73,71 @@ def test_kmv_dp(native, kw, monkeypatch):
     assert pp._sp_native is native
 
 
+def spy_slot_uploads(monkeypatch):
+    """Record what still elision under a mesh does with its windows: each
+    window's plane (entering _plane_elided), each plan's frame-index input
+    and result (compact_changed_batch), and each upload_changed_rows call
+    with the counts of windows and plans seen before it."""
+    rec = dict(planes=[], planned=[], uploads=[])
+    raw_plan, raw_rows = P.sp_recon.compact_changed_batch, \
+        P.upload_changed_rows
+    raw_elided = P.VideoIngestPipeline._plane_elided
+
+    def elided(self, tr, arrays, *a):
+        rec["planes"].append(arrays[0])
+        return raw_elided(self, tr, arrays, *a)
+
+    def plan(paycode, mvk, changed):
+        rec["planned"].append(np.asarray(paycode))
+        rec["planned"].append(raw_plan(paycode, mvk, changed))
+        return rec["planned"][-1]
+
+    def rows(pc, idx, counts, device, cpad=None):
+        rec["uploads"].append((len(rec["planes"]), len(rec["planned"]), pc,
+                               idx, counts, device, cpad))
+        return raw_rows(pc, idx, counts, device, cpad)
+
+    monkeypatch.setattr(P.VideoIngestPipeline, "_plane_elided", elided)
+    monkeypatch.setattr(P.sp_recon, "compact_changed_batch", plan)
+    monkeypatch.setattr(P, "upload_changed_rows", rows)
+    return rec
+
+
+def check_slot_uploads(rec, pp, dp, B, window):
+    """Every elided window took the PADDED layout; compact_changed_batch
+    planned on a [B, T] frame-index array, never on planes; and
+    upload_changed_rows ran once a slot a window, in slot order, on the
+    slot's device, over views of the window's plane and of the plan's
+    rows at the slot's first stream."""
+    bs = B // dp
+    assert pp.stats["concat_windows"] == 0 and pp.stats["padded_windows"]
+    indices, plans = rec["planned"][::2], rec["planned"][1::2]
+    assert len(indices) == pp.stats["padded_windows"]
+    for a in indices:
+        np.testing.assert_array_equal(a, np.tile(np.arange(window), (B, 1)))
+    assert len(rec["uploads"]) == dp * pp.stats["padded_windows"]
+
+    def first_row(view, whole):
+        """The leading row of `whole` at which `view` starts."""
+        assert np.shares_memory(view, whole)
+        off = (view.__array_interface__["data"][0]
+               - whole.__array_interface__["data"][0])
+        assert off % whole.strides[0] == 0
+        return off // whole.strides[0]
+
+    for k, (w, n, pc, idx, counts, device, cpad) in enumerate(
+            rec["uploads"]):
+        slot = k % dp
+        whole_pc = rec["planes"][w - 1]
+        plan_rows, _, valid, _ = plans[n // 2 - 1]
+        assert device == torch.device("cpu") and cpad == plan_rows.shape[1]
+        assert pc.shape == (bs, window) + whole_pc.shape[2:]
+        assert first_row(pc, whole_pc) == first_row(idx, plan_rows) == \
+            slot * bs
+        np.testing.assert_array_equal(
+            counts, valid[slot * bs:(slot + 1) * bs].sum(axis=1))
+
+
 @pytest.mark.parametrize("kw", [
     dict(window=6, still_elision=True),
     dict(window=6, still_elision=True, emit_frames=False,
@@ -89,57 +154,12 @@ def test_kmv_elided_dp(kw, monkeypatch):
     at the slot's first stream (dp=8: one stream a slot; dp=4: two)."""
     kw = dict(kw)
     dp = kw.pop("dp", 8)
-    B, bs, window = len(STILLS8), len(STILLS8) // dp, kw["window"]
-    planned, windows_pc, uploads = [], [], []
-    raw_plan, raw_rows = P.sp_recon.compact_changed_batch, \
-        P.upload_changed_rows
-    raw_elided = P.VideoIngestPipeline._kmv_elided
-
-    def elided(self, pc, *a):
-        windows_pc.append(pc)
-        return raw_elided(self, pc, *a)
-
-    def plan(paycode, mvk, changed):
-        planned.append(np.asarray(paycode))
-        planned.append(raw_plan(paycode, mvk, changed))
-        return planned[-1]
-
-    def rows(pc, idx, counts, device, cpad=None):
-        uploads.append((len(windows_pc), len(planned), pc, idx, counts,
-                        device, cpad))
-        return raw_rows(pc, idx, counts, device, cpad)
-
-    monkeypatch.setattr(P.VideoIngestPipeline, "_kmv_elided", elided)
-    monkeypatch.setattr(P.sp_recon, "compact_changed_batch", plan)
-    monkeypatch.setattr(P, "upload_changed_rows", rows)
+    rec = spy_slot_uploads(monkeypatch)
     pp, port = compare(STILLS8, dp, **kw)
-    assert pp.stats["concat_windows"] == 0 and pp.stats["padded_windows"]
-    indices, plans = planned[::2], planned[1::2]
-    assert len(indices) == pp.stats["padded_windows"]
-    for a in indices:
-        np.testing.assert_array_equal(a, np.tile(np.arange(window), (B, 1)))
-    assert len(uploads) == dp * pp.stats["padded_windows"]
-
-    def first_row(view, whole):
-        """The leading row of `whole` at which `view` starts."""
-        assert np.shares_memory(view, whole)
-        off = (view.__array_interface__["data"][0]
-               - whole.__array_interface__["data"][0])
-        assert off % whole.strides[0] == 0
-        return off // whole.strides[0]
-
-    for k, (w, n, pc, idx, counts, device, cpad) in enumerate(uploads):
-        slot = k % dp
-        whole_pc = windows_pc[w - 1]
-        plan_rows, _, valid, _ = plans[n // 2 - 1]
-        assert device == torch.device("cpu") and cpad == plan_rows.shape[1]
-        assert pc.shape == (bs, window) + whole_pc.shape[2:]
-        assert first_row(pc, whole_pc) == first_row(idx, plan_rows) == \
-            slot * bs
-        np.testing.assert_array_equal(
-            counts, valid[slot * bs:(slot + 1) * bs].sum(axis=1))
+    check_slot_uploads(rec, pp, dp, len(STILLS8), kw["window"])
     if kw.get("emit_frames", True):
-        assert any(w["frames_u32"].shape[0] < window * B for w in port)
+        assert any(w["frames_u32"].shape[0] < kw["window"] * len(STILLS8)
+                   for w in port)
 
 
 def test_kmv_dp_two_streams_a_slot():
@@ -167,8 +187,15 @@ BC8 = [make_avi(s, 48, 32, 6)[0] for s in range(8)]
 @pytest.mark.parametrize("kw", [dict(window=3),
                                 dict(window=3, still_elision=True)],
                          ids=["dense", "elided"])
-def test_bc_dp(kw):
-    compare(BC8, 8, sp_device_path="bc", **kw)
+def test_bc_dp(kw, monkeypatch):
+    """bc on a dp=8 mesh; still-elided, each slot uploads its own
+    streams' changed planes, as kmv's do."""
+    rec = spy_slot_uploads(monkeypatch)
+    pp, _ = compare(BC8, 8, sp_device_path="bc", **kw)
+    if kw.get("still_elision"):
+        check_slot_uploads(rec, pp, 8, len(BC8), kw["window"])
+    else:
+        assert rec == dict(planes=[], planned=[], uploads=[])
 
 
 @pytest.mark.parametrize("path", ["bc", "kmv"])
