@@ -72,7 +72,8 @@ import torch
 from ..core.loader import DataLoaderAVISeq
 from ..core.source import ByteSource
 from ..core.types import CodecType, VideoInfo
-from ..device import resolve_device, to_device, to_device_into, torch_to_u32
+from ..device import (is_pinned, pin_host, resolve_device, to_device,
+                      to_device_into, torch_to_u32, upload_guard)
 from ..codecs.msvideo1 import palette_to_u32, parse_commands
 from ..kernels import msv1_paint, sp_recon
 from ..kernels.rgb_convert import ds2_packed_output, to_model_input
@@ -90,7 +91,9 @@ PORTED_SP_PATHS = ("kmv", "bc", "kmv_sparse", "general", "pallas", "lane")
 # than the decode itself.  Buffers are checked out exclusively (popped)
 # while a pipeline iterates and returned when its iterator finishes.  A
 # pooled kmv plane travels with its `dirty` incremental-fill state under
-# one key: the native fill trusts `dirty` to say what the plane holds.
+# one key: the native fill trusts `dirty` to say what the plane holds.  A
+# plane pooled for a CUDA pipeline is page-locked (its key says so), and
+# travels with `guard`, the events of the uploads still reading it.
 _BUFFER_POOL: dict = {}
 
 # pipeline serials: a window's trace id is (serial, start frame)
@@ -713,8 +716,9 @@ class VideoIngestPipeline:
         return self._bufs[key]
 
     def _release_buffers(self):
-        # uploads are blocking copies (device.to_device), so no device work
-        # still reads these host pages
+        # a plane goes back with its pending guard: the non-blocking copies
+        # of the last window may still read it, and the next pipeline to
+        # take it waits for them before its first fill (_plane_buffers)
         for key, buf in self._bufs.items():
             _pool_release(key, buf)
         self._bufs = {}
@@ -782,7 +786,8 @@ class VideoIngestPipeline:
             sig = np.zeros((B, T), dtype=bool)
             with TRACE.span("jsp.entropy"):
                 self._decode_planes(tr, buf, chunk, changed, sig)
-            return self._plane_route(tr, tr.arrays(buf), changed, sig, start)
+            return self._plane_route(tr, tr.arrays(buf), changed, sig, start,
+                                     buf["guard"])
         if self.cfg.sp_device_path == "bc":
             return self._decode_sp_window_bc(chunk, start, decs)
         # command capture (bts/mv/rect + the decoded frame as payload) by
@@ -854,13 +859,44 @@ class VideoIngestPipeline:
 
     def _plane_buffers(self, tr: _PlaneTransport, lead: tuple) -> dict:
         """The pooled host buffers of a plane transport's window, lead
-        (B, T) or, grouped, (B, G, T)."""
+        (B, T) or, grouped, (B, G, T), once no upload still reads the
+        plane: the window is about to refill it.  For a CUDA pipeline the
+        plane is page-locked when the pool builds it."""
         vi = self.info
         nb = ((vi.width + 15) // 16) * ((vi.height + 15) // 16)
+        pin = self._pins_planes
         # grouped buffers are pooled apart, under G
         key = (tr.name,) if len(lead) == 2 else (tr.name + "g", lead[1])
-        return self._buffers(key, lambda: tr.buffers(
-            lead, vi.height, vi.width, nb, self.cfg.kmv_k))
+
+        def build():
+            buf = tr.buffers(lead, vi.height, vi.width, nb, self.cfg.kmv_k)
+            if pin:
+                pin_host(buf["plane"])
+            return dict(buf, guard=[])
+
+        buf = self._buffers(key + (pin,), build)
+        if buf["guard"]:
+            with TRACE.span("jsp.refill_wait"):
+                for ev in buf["guard"]:
+                    ev.synchronize()
+                buf["guard"].clear()
+        return buf
+
+    @property
+    def _pins_planes(self) -> bool:
+        """Whether the pooled planes are page-locked: the uploads go to a
+        CUDA device."""
+        return self.device.type == "cuda"
+
+    def _upload_rows(self, plane, rows, counts, device, cpad=None,
+                     guard=None) -> torch.Tensor:
+        """upload_changed_rows, and an upload_guard in `guard` (the pooled
+        plane's) after the copies where they read pinned pages without
+        blocking."""
+        out = upload_changed_rows(plane, rows, counts, device, cpad)
+        if guard is not None and is_pinned(plane):
+            guard.append(upload_guard(out.device))
+        return out
 
     def _decode_planes(self, tr: _PlaneTransport, buf, chunk, changed, sig,
                        *g) -> None:
@@ -919,17 +955,19 @@ class VideoIngestPipeline:
         return self._emit(frames, signif, start)
 
     def _plane_route(self, tr: _PlaneTransport, arrays, changed, sig,
-                     start) -> dict:
+                     start, guard=None) -> dict:
         """Dispatch an assembled plane-transport window (arrays = (plane
         [B,T,Y,X], *small [B,T,...]), changed/sig [B,T]) to the
         still-elided scans, the sharded mesh step, fused model emission,
-        or the dense batch scan.  Shared by both host branches."""
+        or the dense batch scan.  Shared by both host branches; `guard`
+        is a pooled plane's (_plane_buffers)."""
         B = changed.shape[0]
         init = self._carry_init(B)
         mesh = self.cfg.mesh
         if self.cfg.still_elision and (
                 mesh is not None or B > 1 or not tr.single_compact):
-            return self._plane_elided(tr, arrays, changed, sig, init, start)
+            return self._plane_elided(tr, arrays, changed, sig, init, start,
+                                      guard)
         if self.cfg.still_elision:  # single kmv stream: exact compact scan
             pc, mvk = arrays
             with TRACE.span("jsp.compact"):
@@ -967,7 +1005,7 @@ class VideoIngestPipeline:
         return self._emit(frames, self._put(sig), start)
 
     def _plane_elided(self, tr: _PlaneTransport, arrays, changed, sig, init,
-                      start) -> dict:
+                      start, guard=None) -> dict:
         """Batched still-elision: stills never enter the device scan.
 
         "frames_u32" (or "model_input" when fused) is a FLAT stack of
@@ -986,7 +1024,11 @@ class VideoIngestPipeline:
         The compaction plans on frame indices, the small arrays are
         gathered by the plan's rows, and the changed planes go straight
         from the window into a device stack (upload_changed_rows): the
-        scan's on one device, each slot's on its own device under a mesh."""
+        scan's on one device, each slot's on its own device under a mesh.
+        From a pinned plane those copies do not block, and `guard` takes
+        their events; every blocking upload of the window is queued before
+        them (a blocking copy would wait for them: it synchronises its
+        stream)."""
         plane, small = arrays[0], arrays[1:]
         B, T = changed.shape
         mesh = self.cfg.mesh
@@ -1023,10 +1065,11 @@ class VideoIngestPipeline:
             # (fused model-only emission still decodes the frame stack
             # here: the per-stream carries come from frame rows)
             with TRACE.span("jsp.scan"):
+                small_d = [self._put(a) for a in cats]
                 frames = tr.decode_compact(
-                    init[0], upload_changed_rows(plane, rows, counts,
-                                                 self.device),
-                    *map(self._put, cats))
+                    init[0], self._upload_rows(plane, rows, counts,
+                                               self.device, guard=guard),
+                    *small_d)
             ends = offsets + counts  # exclusive
             self._carry = torch.stack([
                 frames[int(ends[b]) - 1] if counts[b] else init[b]
@@ -1041,27 +1084,30 @@ class VideoIngestPipeline:
                 self.cfg.emit_model_input:
             # fused: the compacted masked scan emits ONLY model tensors
             with TRACE.span("jsp.scan"):
+                small_d = [self._put(a) for a in (*smallc, valid)]
                 carry, model = tr.decode_model(
-                    init, upload_changed_rows(plane, rows, counts,
-                                              self.device, cpad),
-                    *map(self._put, smallc), self._put(valid),
-                    **self._model_kw())
+                    init, self._upload_rows(plane, rows, counts,
+                                            self.device, cpad, guard),
+                    *small_d, **self._model_kw())
             self._carry = carry
             out["outmap"] = outmap_flat
             out["model_input"] = model.reshape((B * cpad,) + model.shape[2:])
             return out
         with TRACE.span("jsp.scan"):
             if mesh is not None:
+                # run_bg builds every slot's SlotBuilt input last
                 frames = self._sharded_plane_step(tr, SlotBuilt(
                     (B, 1, cpad) + plane.shape[2:],
-                    lambda sl, _, dev: upload_changed_rows(
-                        plane[sl], rows[sl], counts[sl], dev, cpad)[:, None]),
+                    lambda sl, _, dev: self._upload_rows(
+                        plane[sl], rows[sl], counts[sl], dev, cpad,
+                        guard)[:, None]),
                     smallc, valid)
             else:
+                small_d = [self._put(a) for a in (*smallc, valid)]
                 frames = tr.decode_batch(
-                    init, upload_changed_rows(plane, rows, counts,
-                                              self.device, cpad),
-                    *map(self._put, smallc), self._put(valid))
+                    init, self._upload_rows(plane, rows, counts,
+                                            self.device, cpad, guard),
+                    *small_d)
         self._carry = frames[:, -1]
         return self._emit_flat(out, outmap_flat,
                                frames.reshape((-1,) + frames.shape[2:]))
@@ -1106,7 +1152,8 @@ class VideoIngestPipeline:
                 (buf["plane"][b], buf["bcode"][b], buf["rloc"][b],
                  buf["mvk"][b]) = sp_recon.prepare_bc(bts, mv, rect, payload,
                                                       K=K)
-        return self._plane_route(tr, tr.arrays(buf), changed, sig, start)
+        return self._plane_route(tr, tr.arrays(buf), changed, sig, start,
+                                 buf["guard"])
 
     # -- the mesh --------------------------------------------------------------
 

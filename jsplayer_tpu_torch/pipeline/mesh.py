@@ -327,9 +327,15 @@ def run_bg(mesh: Mesh, fn, *arrays):
     slots = bg_slots(mesh, B, G)
     base = min(rows.start for rows, _ in slots.values())
     with TRACE.span("jsp.shard"):
-        parts = {s: [_slot_input(a, rows, B, base, mesh.devices[s], cols)
-                     .flatten(0, 1) for a in arrays]
-                 for s, (rows, cols) in slots.items()}
+        # input by input, the SlotBuilt ones last: a blocking upload
+        # synchronises its card's stream, so it would wait for the
+        # non-blocking copies a SlotBuilt input may queue there
+        parts = {s: [None] * len(arrays) for s in slots}
+        for k in sorted(range(len(arrays)),
+                        key=lambda k: isinstance(arrays[k], SlotBuilt)):
+            for s, (rows, cols) in slots.items():
+                parts[s][k] = _slot_input(arrays[k], rows, B, base,
+                                          mesh.devices[s], cols).flatten(0, 1)
     # every copy above, every launch here: nothing in this loop waits for
     # the device, so slots on separate cards run at once
     outs = {s: fn(*x) for s, x in parts.items()}

@@ -131,6 +131,83 @@ def test_ingest_cuda_matches_cpu(dev, emit_frames):
                 np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
 
 
+@pytest.mark.parametrize("transport", ["kmv", "bc"])
+@pytest.mark.parametrize("cards", [0, 1, 2])
+def test_pinned_pool_refill_waits_for_held_back_copies(dev, monkeypatch,
+                                                       transport, cards):
+    """Elided windows back to back through the pinned pool (one card, or a
+    dp=2 mesh with both slots on cuda:0 or on two cards), each window's
+    plane copies held back behind a long kernel queued ahead of them
+    (torch.cuda._sleep): a refill wait found copies still in flight, every
+    fill of the plane came after all of them had read it, and the frames
+    and model tensors equal the same pipeline's on the CPU bit for bit.
+    upload.pinned_bytes is the direct rows' planes."""
+    from jsplayer_tpu_torch import native
+    from jsplayer_tpu_torch.core.source import MemorySource
+    from jsplayer_tpu_torch.pipeline import ingest as P
+    from jsplayer_tpu_torch.pipeline import mesh as PM
+    from jsplayer_tpu_torch.utils.logging import LOG
+
+    if cards == 2 and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    avis = [stills_avi(s) for s in (3, 7, 11, 5)]
+    kw = dict(window=5, still_elision=True, model_downscale=2,
+              sp_device_path=transport)
+    guards, in_flight, early = [], [], []
+    raw_rows, raw_guard = P.upload_changed_rows, P.upload_guard
+    decode = {"kmv": "decompress_kmv", "bc": "decompress_bc"}[transport]
+    raw_decode = getattr(native.NativeScreenPressor, decode)
+
+    class Watched:
+        def __init__(self, ev):
+            self.ev = ev
+
+        def synchronize(self):
+            in_flight.append(not self.ev.query())
+            self.ev.synchronize()
+
+    def held_back(pc, rows, counts, device, cpad=None):
+        with torch.cuda.device(device):
+            torch.cuda._sleep(200_000_000)
+        return raw_rows(pc, rows, counts, device, cpad)
+
+    def guard(device):
+        guards.append(Watched(raw_guard(device)))
+        return guards[-1]
+
+    def fill(self, *a, **k):
+        early.extend(g for g in guards if not g.ev.query())
+        return raw_decode(self, *a, **k)
+
+    outs = {}
+    for d in ("cpu", "cuda"):
+        if d == "cuda":
+            monkeypatch.setattr(P, "upload_changed_rows", held_back)
+            monkeypatch.setattr(P, "upload_guard", guard)
+            monkeypatch.setattr(native.NativeScreenPressor, decode, fill)
+        mesh = None if not cards else PM.make_mesh(
+            2, 1, devices=[torch.device(d, k % cards) if d == "cuda"
+                           else torch.device("cpu") for k in range(2)])
+        before = LOG.counters.copy()
+        pipe = P.VideoIngestPipeline([MemorySource(a) for a in avis],
+                                     P.IngestConfig(device=d, mesh=mesh,
+                                                    **kw))
+        outs[d] = list(pipe)
+        got = LOG.counters - before
+    assert pipe._sp_native and len(outs["cuda"]) == 3
+    assert len(guards) == (2 if cards else 1) * len(outs["cuda"])
+    assert any(in_flight) and not early
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert a.keys() == b.keys()
+        for k, v in a.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, b[k].cpu()), k
+            else:
+                np.testing.assert_array_equal(np.asarray(v), np.asarray(b[k]))
+    assert got["upload.pinned_bytes"] == (got["elision.direct_rows"]
+                                          * 48 * 32 * 4) > 0
+
+
 @pytest.mark.parametrize("layout", ["concat", "padded"])
 def test_changed_rows_upload_matches_the_host_stack(dev, layout):
     """The elided route's device stack, placed run by run from a window of
