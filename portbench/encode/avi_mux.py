@@ -5,7 +5,11 @@ avi_mux.py as they stood when the benchmark was defined, so a later change
 to the port's muxer cannot move the benchmark's inputs.  One change: the
 movi body is joined once from its parts instead of grown by one bytes
 concatenation a chunk (quadratic in a 47 MB stream); the bytes are the
-same, which portbench/tests/test_portbench_inputs.py checks.
+same, which portbench/tests/test_portbench_inputs.py checks.  And one
+addition: ``sound_format`` states the audio stream's channels, rate and
+bytes a second in its strh and strf (a configuration's ``audio``); without
+it they are the port's fixed MP3 values, 2 channels at 44.1 kHz and
+16,000 B/s.
 """
 
 from __future__ import annotations
@@ -50,14 +54,18 @@ def _strf_vids(width: int, height: int, bpp: int, codec_fourcc: bytes,
     return bi + pal
 
 
-def _strh_auds() -> bytes:
+_MP3 = {"tag": 0x55, "channels": 2, "rate": 44100, "bytes_per_s": 16000}
+
+
+def _strh_auds(fmt: dict) -> bytes:
     return struct.pack("<4s4sIIIIIIIIiI8x", b"auds", b"\x00" * 4, 0, 0, 0,
-                       1, 44100, 0, 0, 0, -1, 1)
+                       1, fmt["rate"], 0, 0, 0, -1, 1)
 
 
-def _strf_auds() -> bytes:
+def _strf_auds(fmt: dict) -> bytes:
     # WAVEFORMATEX for MP3 (format tag 0x55), minimal
-    return struct.pack("<HHIIHH", 0x55, 2, 44100, 16000, 1, 0)
+    return struct.pack("<HHIIHH", fmt["tag"], fmt["channels"], fmt["rate"],
+                       fmt["bytes_per_s"], 1, 0)
 
 
 def mux_avi(
@@ -71,11 +79,14 @@ def mux_avi(
     keyflags: Optional[Sequence[bool]] = None,
     sound_chunks: Optional[Sequence[tuple[int, bytes]]] = None,
     with_idx1: bool = True,
+    sound_format: Optional[dict] = None,
 ) -> bytes:
     """Build a simple (idx1-indexed) AVI file.
 
     sound_chunks: list of (after_frame_index, payload) '01wb' chunks placed
-    after the given video frame inside movi.
+    after the given video frame inside movi.  sound_format: their stream's
+    {"tag", "channels", "rate", "bytes_per_s"} (the port's MP3 values when
+    None).
     """
     fcc = codec.encode("latin-1")
     if keyflags is None:
@@ -88,8 +99,9 @@ def mux_avi(
                    + _chunk(b"strf", _strf_vids(width, height, bpp, fcc, palette)))
     strls = strl_v
     if sound_chunks:
-        strls += _list(b"strl", _chunk(b"strh", _strh_auds())
-                       + _chunk(b"strf", _strf_auds()))
+        fmt = sound_format or _MP3
+        strls += _list(b"strl", _chunk(b"strh", _strh_auds(fmt))
+                       + _chunk(b"strf", _strf_auds(fmt)))
     hdrl = _list(b"hdrl", _chunk(b"avih", _avih(width, height, len(frames), fps)) + strls)
 
     # movi body + idx1 entries.  idx1 offsets are relative to the 'movi'

@@ -28,7 +28,8 @@ pass over them, which runs every shape the window will.
 
 Judged after it, once the peak memory is read and the pipeline is gone:
 every window of one pass drawn from the seed (the first or the second,
-or the last when the run made fewer) and of the last pass.
+or the last when the run made fewer) and of the last pass; where the
+configuration has ``audio``, those passes' audio tracks too.
 """
 
 from __future__ import annotations
@@ -99,6 +100,7 @@ class Window:
         self.coded_bytes = 0
         self.out_bytes = 0
         self.held: dict = {}  # pass -> its windows, for the judge
+        self.audio: dict = {}  # held pass -> its tracks' sections a slot
         self.pass_s: list = []  # each pass's seconds
 
 
@@ -106,7 +108,8 @@ def drive(cell, inputs, device, seconds, keep: int, tally: Window,
           mesh=None) -> None:
     """Whole passes until one ends at or after `seconds` (one pass when
     `seconds` is None), on `mesh` when there is one.  Windows of pass
-    `keep` and of the last pass stay held in tally.held."""
+    `keep` and of the last pass stay held in tally.held; where the
+    configuration has audio, those passes' tracks in tally.audio."""
     T = cell.config["frames"]
     B = len(inputs.containers)
     t0 = time.perf_counter()
@@ -134,6 +137,10 @@ def drive(cell, inputs, device, seconds, keep: int, tally: Window,
                     tally.held.pop(p - 1, None)
         finally:
             it.close()
+        if cell.config.get("audio"):
+            tally.audio = {q: a for q, a in tally.audio.items()
+                           if q in tally.held}
+            tally.audio[p] = [list(t.sections) for t in pipe.audio_tracks]
         q = getattr(pipe, "quarantined", set())
         tally.quarantined += len(q) * T
         if q:
@@ -257,18 +264,20 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
             "device_ops": [[k[:160], v / 1e6] for k, v in ops],
             "idle_gaps": [[k, v] for k, v in idle]}
         del prof, tr
-    held = tally.held
+    held, audio = tally.held, tally.audio
     del tally
     judge = Judge(inputs.frames, cell.config,
                   cell.bench.module("references", cell.config["reference"]),
-                  dev)
+                  dev, audio=inputs.audio)
     t = time.perf_counter()
     T = cell.config["frames"]
     for p in sorted(held):
         for w in held[p]:
             judge.window(w, T)
         judge.coverage(held[p], T)
-    del held
+        if cell.config.get("audio"):
+            judge.audio(audio.get(p))
+    del held, audio
     res["judge"] = {"windows": judge.windows,
                     "seconds": time.perf_counter() - t}
     res["checks"] = judge.checks()

@@ -15,6 +15,12 @@ their chunks to the configuration's length (keyframes at the period's
 ``keyframes``).  ``"container": "lane"`` hands each encoded AVI to the
 port's own transcoder (the deployment's step, so it is the port's and not
 a frozen copy) with the traffic's ``lane`` arguments.
+
+A codec module with a ``PALETTE`` (256 u32 ``0x00RRGGBB``) codes palette
+indices: the palette goes into ``strf`` and the source frames are
+``PALETTE[indices]``.  A configuration's ``"audio": {"format": <module of
+encode/>, ...}`` gives every stream a track from its content seed, which
+the container interleaves after the video frames (encode/mp3.py).
 """
 
 from __future__ import annotations
@@ -41,11 +47,16 @@ class Inputs:
     coded: list
     pool: list  # slot b -> pool index
     seconds: dict  # what making them took, by step
+    audio: list  # audio[b]: slot b's track, its frames' bytes (or None)
+
+
+FPS = 15.0  # the frame rate every container states (mux_avi's)
 
 
 def _pool_stream(cell, content_seed: int):
     """One distinct stream → (AVI bytes, source frames [T, Y, X] u32, chunk
-    sizes [T], (recipe seconds, encode and mux seconds))."""
+    sizes [T], its audio track's frames or None, (recipe seconds, encode
+    and mux seconds))."""
     cfg, traffic = cell.config, cell.traffic
     codec = importlib.import_module(f"{__package__}.encode.{cfg['codec']}")
     recipe = cell.bench.module("recipes", traffic["recipe"])
@@ -60,10 +71,23 @@ def _pool_stream(cell, content_seed: int):
     reps = -(-T // period)
     chunks = (chunks * reps)[:T]
     frames = np.concatenate([src] * reps)[:T] if reps > 1 else src
-    avi = mux_avi(chunks, X, Y, codec.BPP, codec=codec.FOURCC,
-                  keyflags=[t % period in keys for t in range(T)])
+    extra, audio = {}, None
+    palette = getattr(codec, "PALETTE", None)
+    if palette is not None:
+        extra["palette"] = np.asarray(palette, dtype="<u4").tobytes()
+        frames = palette[frames]
+    if cfg.get("audio"):
+        params = dict(cfg["audio"])
+        fmt = importlib.import_module(
+            f"{__package__}.encode.{params.pop('format')}")
+        audio, extra["sound_chunks"] = fmt.track(content_seed, T, FPS,
+                                                 **params)
+        extra["sound_format"] = fmt.wave_format(**params)
+    avi = mux_avi(chunks, X, Y, codec.BPP, codec=codec.FOURCC, fps=FPS,
+                  keyflags=[t % period in keys for t in range(T)], **extra)
     t2 = time.perf_counter()
-    return avi, frames, np.array([len(c) for c in chunks]), (t1 - t0, t2 - t1)
+    return (avi, frames, np.array([len(c) for c in chunks]), audio,
+            (t1 - t0, t2 - t1))
 
 
 def make_inputs(cell, seed: int, workers: int = 4) -> Inputs:
@@ -77,8 +101,8 @@ def make_inputs(cell, seed: int, workers: int = 4) -> Inputs:
     cell.bench.module("recipes", traffic["recipe"])  # loaded before threads
     with ThreadPoolExecutor(min(workers, len(pool))) as ex:
         made = list(ex.map(lambda c: _pool_stream(cell, c), pool))
-    seconds = {"recipe": sum(m[3][0] for m in made),
-               "encode": sum(m[3][1] for m in made)}
+    seconds = {"recipe": sum(m[4][0] for m in made),
+               "encode": sum(m[4][1] for m in made)}
     avis = [m[0] for m in made]
     coded = [m[2] for m in made]
     if traffic.get("container", "avi") == "lane":
@@ -93,4 +117,4 @@ def make_inputs(cell, seed: int, workers: int = 4) -> Inputs:
     return Inputs(containers=[avis[p] for p in slots],
                   frames=[made[p][1] for p in slots],
                   coded=[coded[p] for p in slots], pool=slots,
-                  seconds=seconds)
+                  seconds=seconds, audio=[made[p][3] for p in slots])

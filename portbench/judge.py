@@ -14,6 +14,10 @@ whether its windows cover every frame of the streams.  The counts:
                       past the stack) and of a frame a whole pass left out
   model_elems_wrong   model tensor elements whose bits differ from the
                       reference epilogue of the source frame
+  audio_frames_wrong  where the configuration has audio (``audio``): MP3
+                      frames of the source track that no section of a
+                      slot's audio track delivers at its own sample, and
+                      frames of sections that break a rule (``audio``)
 
 Each has the limit its reference module's LIMITS gives.
 """
@@ -24,6 +28,8 @@ import numpy as np
 import torch
 
 _INT_OF = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+FRAME_SAMPLES = 1152  # an MPEG-1 Layer III frame's samples
+_GRID = 1e-6  # of a frame: a time on the sample grid but for float rounding
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -45,11 +51,13 @@ class Judge:
     """Counts over every window handed to `window`, against source frames
     [B] of [T, Y, X] u32 and a reference module (references/<name>.py)."""
 
-    def __init__(self, frames: list, cfg: dict, reference, device):
+    def __init__(self, frames: list, cfg: dict, reference, device,
+                 audio: list = None):
         self.frames, self.cfg, self.ref = frames, cfg, reference
         self.device = torch.device(device)
         self.counts = {k: 0 for k in reference.LIMITS}
         self.windows = 0
+        self.audio_src = audio  # audio[b]: slot b's source MP3 frames
 
     def _src(self, b: int, lo: int, hi: int) -> torch.Tensor:
         a = self.frames[b][lo:hi].view(np.int32)
@@ -113,6 +121,16 @@ class Judge:
         self.counts["frame_px_wrong"] += (int((~seen).sum()) * Y * X
                                           * len(self.frames))
 
+    def audio(self, tracks) -> None:
+        """One pass's audio: tracks[b] the sections of slot b's track (each
+        with ``start_time`` and ``duration`` in seconds and ``data``), or
+        None for a pass that kept none (every frame then counts)."""
+        rate = self.cfg["audio"]["sample_rate"]
+        for b, src in enumerate(self.audio_src):
+            secs = tracks[b] if tracks is not None and b < len(tracks) else []
+            self.counts["audio_frames_wrong"] += audio_frames_wrong(
+                secs, src, rate)
+
     def checks(self) -> dict:
         """{name: {"value": count, "limit": limit}}."""
         return {k: {"value": v, "limit": self.ref.LIMITS[k]}
@@ -120,6 +138,31 @@ class Judge:
 
     def correct(self) -> bool:
         return all(v <= self.ref.LIMITS[k] for k, v in self.counts.items())
+
+
+def _on_grid(x: float) -> tuple:
+    """(nearest whole number to x, whether x is it but for rounding)."""
+    k = round(x)
+    return k, abs(x - k) <= _GRID
+
+
+def audio_frames_wrong(sections, src: list, rate: int) -> int:
+    """Frames of the source track `src` (each frame's bytes, in order) that
+    no section delivers at its own sample, plus the frames of each section
+    that breaks a rule.  A section has to start exactly on sample k x 1152
+    (k whole), last n x 1152 / rate s (n whole, at least 1), and hold
+    source frames k..k+n-1, concatenated."""
+    delivered = np.zeros(len(src), dtype=bool)
+    wrong = 0
+    for s in sections:
+        k, k_ok = _on_grid(s.start_time * rate / FRAME_SAMPLES)
+        n, n_ok = _on_grid(s.duration * rate / FRAME_SAMPLES)
+        if (k_ok and n_ok and n >= 1 and 0 <= k and k + n <= len(src)
+                and bytes(s.data) == b"".join(src[k:k + n])):
+            delivered[k:k + n] = True
+        else:
+            wrong += max(n, 1)
+    return wrong + int((~delivered).sum())
 
 
 def control_windows(frames: list, cfg: dict, reference, device,

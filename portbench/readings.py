@@ -8,7 +8,8 @@ as the benchmark runs it (set-up, a window of `seconds`, the judgement;
 on the cell's cards counted up from `--device`, cuda:0 by default),
 and for each control seed the reference's control (references/<name>.py,
 one precision below the configuration) put in the program's place over a
-whole pass and judged the same way.  One JSON line a seed on standard
+whole pass and judged the same way, its audio (``control_audio``) too
+where the configuration has a track.  One JSON line a seed on standard
 output, then a summary line: each number's largest program reading and
 smallest control reading.  The benchmark's own runs never run the control.
 """
@@ -44,7 +45,7 @@ def main(argv=None) -> int:
 
     _paths()
     from portbench.harness import run_cell
-    from portbench.inputs import make_inputs
+    from portbench.inputs import FPS, make_inputs
     from portbench.judge import Judge, control_windows
     from portbench.spec import Bench
 
@@ -68,11 +69,15 @@ def main(argv=None) -> int:
             for k, v in line["program"].items():
                 prog[k] = max(prog.get(k, 0), v)
         if seed in args.control_seeds:
-            j = Judge(inputs.frames, cell.config, ref, args.device)
+            j = Judge(inputs.frames, cell.config, ref, args.device,
+                      audio=inputs.audio)
             for w in control_windows(inputs.frames, cell.config, ref,
                                      args.device,
                                      cell.config["ingest"]["window"]):
                 j.window(w, cell.config["frames"])
+            if cell.config.get("audio"):
+                j.audio([ref.control_audio(a, cell.config["audio"], FPS)
+                         for a in inputs.audio])
             line["control"] = {k: c["value"] for k, c in j.checks().items()}
             line["control_correct"] = j.correct()
             for k, v in line["control"].items():

@@ -130,9 +130,10 @@ def reduce_trace(events) -> dict:
 def _run(args) -> dict:
     from portbench import harness
     from portbench.program import summary
-    from portbench.run import missing_cards
+    from portbench.run import keep_freed_heap, missing_cards
     from portbench.spec import Bench
 
+    keep_freed_heap()  # as run.py's runs do
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out,
                         f"{args.workload}-{args.seed}.trace.json.gz")

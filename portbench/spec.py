@@ -5,14 +5,25 @@ A checkout holds ``BENCHMARK.json`` and the benchmark's folder (its
 span list, counter list or per-layer metric sits in a file of its own
 there, found by name:
 
-  configs/<config>.json    the deployment (the path BENCHMARK.json gives)
+  configs/<config>.json    the deployment (the path BENCHMARK.json gives);
+                           an optional ``audio``: {"format": <module of
+                           encode/>, ...} gives every stream a track
   traffic/<traffic>.json   the mix: recipe, pool, keyframes, container,
                            IngestConfig fields
   recipes/<recipe>.py      a content generator: frames(seed, n, Y, X, ...)
+  encode/<codec>.py        a codec: FOURCC, BPP, encode(frames, keys); an
+                           optional PALETTE (256 u32 0x00RRGGBB) makes the
+                           recipe's frames palette indices, the palette
+                           the container's and PALETTE[indices] the source
+  encode/<format>.py       an audio format: track(seed, video_frames, fps,
+                           ...) and wave_format(...) (mp3.py)
   spans/<set>.json         port functions to time, by module and name
   counters/<set>.json      port wrappers whose ``.launches`` to read
   metrics/<metric>.py      read(ctx) -> the metric's value, or None
-  references/<ref>.py      a configuration's plain reference
+  references/<ref>.py      a configuration's plain reference; with audio
+                           it has ``audio_frames_wrong`` in LIMITS and a
+                           ``control_audio`` (ds2_frames_mp3.py), or the
+                           cell is refused when it loads
 
 So a later change adds a cell, a configuration, a mix, a span list or a
 metric by adding files and entries, and edits none.
@@ -89,6 +100,15 @@ class Bench:
                          if c["name"] == w["config"])
         with open(os.path.join(self.checkout, cfg_entry["file"])) as f:
             config = json.load(f)
+        if config.get("audio"):
+            ref = self.module("references", config["reference"])
+            if ("audio_frames_wrong" not in ref.LIMITS
+                    or not hasattr(ref, "control_audio")):
+                raise ValueError(
+                    f"{name}: configuration {cfg_entry['name']} has audio, "
+                    f"but references/{config['reference']}.py judges none "
+                    f"(no audio_frames_wrong in LIMITS, or no "
+                    f"control_audio): the track would go unjudged")
         return Cell(name=name, chips=int(w["chips"]), config=config,
                     traffic=self.data("traffic", w["traffic"]), bench=self)
 

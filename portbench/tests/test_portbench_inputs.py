@@ -60,7 +60,7 @@ def test_msv1_streams_are_the_ports():
     cell = Cell("t", 1, cfg, BENCH.data("traffic", "msv1_desktop"), BENCH)
     want = msv1_streams(16, 4, 40, 64, 48, seed=0)
     for i in range(4):
-        avi, frames, sizes, _ = _pool_stream(cell, i)
+        avi, frames, sizes = _pool_stream(cell, i)[:3]
         assert avi == want["avis"][i]
         assert np.array_equal(frames[:16].reshape(16, -1),
                               np.stack(want["frames"][i]))

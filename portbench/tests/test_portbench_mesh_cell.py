@@ -18,7 +18,11 @@ from test_portbench_metrics import FakeProf, ev
 CELL = "sp1080_terminal_kmv_elided_dp4"
 NEW = ["mesh.shard_ms_per_frame", "mesh.gather_ms_per_frame",
        "mesh.exchange_bytes_per_frame", "mesh.card_idle_max",
-       "mesh.compact_ms_per_frame"]
+       "mesh.compact_ms_per_frame", "upload.pinned_share",
+       "upload.wait_ms_per_frame"]
+# on the CPU nothing is pinned (the share reads 0) and no refill waits on a
+# card's event, so upload.wait_ms_per_frame finds nothing to read there
+TRACED_ON_CPU = set(NEW) - {"upload.wait_ms_per_frame"}
 
 
 def test_the_configuration_is_cell_1s_on_a_mesh():
@@ -51,7 +55,8 @@ def test_traced_cell_on_four_cpu_slots(tiny_checkout):
         res = run_cell(cell, 2**31 + 77, 0.3, True, "cpu",
                        time.perf_counter())
     assert res["correct"], res["checks"]
-    assert set(res["metrics"]) == set(NEW)
+    assert set(res["metrics"]) == TRACED_ON_CPU
+    assert res["metrics"]["upload.pinned_share"] == 0.0
     assert all(v >= 0 for v in res["metrics"].values()), res["metrics"]
     s = TRACE.summary()
     c = s["counters"]
