@@ -36,7 +36,9 @@ windows.
     host parses each frame into per-block commands (native or
     codecs/msvideo1.parse_commands) and one launch of csrc/msv1_paint.cu
     paints the window (kernels/msv1_paint); no elision, as in the
-    reference.
+    reference.  Each 8-bit stream is parsed with its own header's palette,
+    which repairs reference host fault 4 (ROADMAP.md §3): the reference
+    parses every stream of the batch with stream 0's.
 
 The window dicts have the reference's keys, shapes and meaning.  u32
 planes (``frames_u32``) are int32 tensors holding the u32 bits (see
@@ -56,7 +58,10 @@ failure.
 
 StreamReader, _StreamingFrames, _trim_window, _oracle_decode_step, the
 host-buffer pool and _pow2ceil are copies of the reference's: its module
-imports jax at the top, which this package never does.
+imports jax at the top, which this package never does.  StreamReader adds
+the tracer's jsp.audio span around the MP3 parsing it drives (the up-front
+drain, and each parse of the streaming pump, which runs in a jsp.demux
+span) and its counters audio.frames, audio.bytes and audio.sections.
 """
 
 from __future__ import annotations
@@ -345,6 +350,31 @@ class IngestConfig:
         resolve_device(self.device)
 
 
+def _audio_mark(mp) -> int:
+    """The MP3 scanner's sound-buffer offset below which every frame has
+    gone to the track: its first pending frame's start, or its position."""
+    return mp.frames[0][0] if mp.frames else mp.position
+
+
+def _parse_audio(loader, parse: Callable[[], None]) -> None:
+    """Run `parse`, a stretch of the loader's MP3 parsing.  While the
+    tracer records and the source has sent sound bytes, in a jsp.audio
+    span, counting what it handed to the track: audio.frames (MP3 frames),
+    audio.bytes (the sound bytes below the scanner's mark: those frames,
+    and any bytes it skipped between them) and audio.sections (sections
+    added to the AudioTrack)."""
+    if not TRACE.active or not loader.sound_buffer.total_size:
+        parse()
+        return
+    mp = loader.mp3_parser
+    f0, b0, s0 = mp.frames_processed, _audio_mark(mp), len(mp.sections)
+    with TRACE.span("jsp.audio"):
+        parse()
+    LOG.count("audio.frames", mp.frames_processed - f0)
+    LOG.count("audio.bytes", _audio_mark(mp) - b0)
+    LOG.count("audio.sections", len(mp.sections) - s0)
+
+
 class StreamReader:
     """Demux one AVI source into frame bytes (host).
 
@@ -374,13 +404,7 @@ class StreamReader:
         self.loader.pump_all()
         self.eof = True
         # drain the MP3 side once up front
-        for _ in range(100000):
-            before = self.loader.mp3_parser.frames_processed
-            self.loader.parse_sound()
-            if self.loader.mp3_parser.frames_processed == before:
-                break
-        self.loader.mp3_parser.on_data_end()
-        self.loader.parse_sound()
+        _parse_audio(self.loader, self._drain_sound)
         if self.loader.video_info is None:
             raise ValueError(
                 "no video header found (file truncated before avih/strf?)")
@@ -391,17 +415,28 @@ class StreamReader:
         ]
         self.audio_track = self.loader.audio_track
 
+    def _drain_sound(self) -> None:
+        for _ in range(100000):
+            before = self.loader.mp3_parser.frames_processed
+            self.loader.parse_sound()
+            if self.loader.mp3_parser.frames_processed == before:
+                break
+        self.loader.mp3_parser.on_data_end()
+        self.loader.parse_sound()
+
     # -- streaming mode ------------------------------------------------------
 
     def fetch_upto(self, hi: int) -> None:
         """Pump the demuxer until frame `hi` (exclusive) is parsed or EOF;
         the MP3 scanner rides along.  Progress is the PARSE watermark."""
-        while not self.eof and self.loader.loaded_frames_end() < hi:
-            if not self.loader.pump():
-                self.eof = True
-            self.loader.parse_sound()
-        if self.eof and not self.loader.mp3_parser.parsing_complete:
-            self.loader.parse_sound()
+        ld = self.loader
+        with TRACE.span("jsp.demux"):
+            while not self.eof and ld.loaded_frames_end() < hi:
+                if not ld.pump():
+                    self.eof = True
+                _parse_audio(ld, ld.parse_sound)
+            if self.eof and not ld.mp3_parser.parsing_complete:
+                _parse_audio(ld, ld.parse_sound)
 
     def available(self) -> int:
         return self.loader.loaded_frames_end()
@@ -527,6 +562,12 @@ class VideoIngestPipeline:
                        and info0.codec == CodecType.SCREENPRESSOR)
         #: per-stream AudioTrack (MP3 sections, PTS, time_loaded watermark)
         self.audio_tracks = [r.audio_track for r in self.readers]
+        # each stream's palette as u32 colours, from its own header (None
+        # for 16-bit MSV1).  Reference host fault 4, repaired: the
+        # reference parses every stream of an 8-bit batch with stream 0's
+        self._pals = [palette_to_u32(r.info.palette)
+                      if r.info.codec == CodecType.MSVC8 else None
+                      for r in self.readers]
         self._pcm_cache = None
         # per-stream failure quarantine: a malformed frame freezes that
         # stream at its last good frame; other batch slots continue
@@ -1478,8 +1519,6 @@ class VideoIngestPipeline:
         launch paints the window of every stream."""
         vi = self.info
         X, Y = vi.width, vi.height
-        pal = (palette_to_u32(vi.palette) if vi.codec == CodecType.MSVC8
-               else None)
         B, T = len(chunk), self.cfg.window
         nb = (X >> 2) * (Y >> 2)
         with TRACE.span("jsp.prep"):
@@ -1496,7 +1535,8 @@ class VideoIngestPipeline:
                 for t, src in enumerate(frames):
                     # a malformed MSV1 stream quarantines its slot (frozen
                     # at the last good frame) instead of failing the batch
-                    got = self._guard(b, lambda: parse(src, X, Y, pal=pal))
+                    got = self._guard(b, lambda: parse(
+                        src, X, Y, pal=self._pals[b]))
                     if got is None:
                         continue
                     bt[b, t], sel[b, t], col[b, t], chg[b, t] = got

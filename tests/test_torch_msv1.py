@@ -18,11 +18,14 @@ from jsplayer_tpu.encode.avi_mux import mux_avi
 from jsplayer_tpu.encode.msv1_enc import (encode_frame_8, random_stream_8,
                                           random_stream_16)
 from jsplayer_tpu.kernels import msv1_paint as J
+from jsplayer_tpu.pipeline import ingest as J_ingest
 from jsplayer_tpu_torch.kernels import msv1_paint as P
+from jsplayer_tpu_torch.pipeline import ingest as P_ingest
 from test_ingest import msv1_avi
 from test_torch_block_cases import t32
 from test_torch_host_copies import plain
-from test_torch_ingest import assert_windows_equal, compare, pipelines
+from test_torch_ingest import (assert_windows_equal, bits, compare,
+                               pipelines)
 from test_torch_msv1_cases import MSV1_CASES, case_inputs
 
 torch.set_num_threads(1)
@@ -195,14 +198,18 @@ def test_case_windows_match_reference(name):
 
 # -- ingest ---------------------------------------------------------------------
 
-def msv1_8_avi(seed, X8=32, Y8=32, T=11, audio=False):
-    """An 8-bit palettized MSV1 stream with its palette in the header and,
-    with `audio`, two MP3 sound chunks (BASELINE config 2's shape)."""
+def msv1_8_avi(seed, X8=32, Y8=32, T=11, audio=False, pal_seed=None,
+               mp3_frames=40):
+    """An 8-bit palettized MSV1 stream with its palette (drawn from
+    `pal_seed`, the stream's seed by default, so streams of a batch differ)
+    in the header and, with `audio`, two MP3 sound chunks of `mp3_frames`
+    frames in all (BASELINE config 2's shape)."""
     from jsplayer_tpu.encode.mp3_synth import make_frames
 
     rng = np.random.default_rng(seed)
+    ps = seed if pal_seed is None else pal_seed
     pal = bytes(b for i in range(256)
-                for b in (i, (i * 3) & 0xFF, (i * 7 + seed) & 0xFF, 0))
+                for b in (i, (i * 3) & 0xFF, (i * 7 + ps) & 0xFF, 0))
     idx = np.full(Y8 * X8, 3 + seed, dtype=np.uint8)
     chunks, prev = [], None
     for t in range(T):
@@ -213,7 +220,7 @@ def msv1_8_avi(seed, X8=32, Y8=32, T=11, audio=False):
         prev = idx
     kw = {}
     if audio:
-        mp3, _, _ = make_frames(40)
+        mp3, _, _ = make_frames(mp3_frames)
         half = len(mp3) // 2
         kw["sound_chunks"] = [(1, mp3[:half]), (4, mp3[half:])]
     return mux_avi(chunks, X8, Y8, 8, codec="CRAM", palette=pal,
@@ -221,7 +228,34 @@ def msv1_8_avi(seed, X8=32, Y8=32, T=11, audio=False):
 
 
 MSV16 = [msv1_avi(s)[0] for s in (1, 2, 3)]
-MSV8 = [msv1_8_avi(s) for s in (1, 2)]
+MSV8 = [msv1_8_avi(s) for s in (1, 2)]  # two palettes
+MSV8_SHARED = [msv1_8_avi(s, pal_seed=1) for s in (1, 2)]  # one palette
+
+
+def compare_alone(avis, **kw):
+    """The port's batch, stream by stream, against the reference decoding
+    that stream alone (B=1): each 8-bit stream in its own palette's colours
+    (reference host fault 4, repaired in the port: the reference's batch
+    paints every stream in stream 0's palette)."""
+    pp = P_ingest.VideoIngestPipeline(
+        [MemorySource(a) for a in avis],
+        P_ingest.IngestConfig(device="cpu", **kw))
+    port = list(pp)
+    for b, avi in enumerate(avis):
+        alone = list(J_ingest.VideoIngestPipeline(
+            [MemorySource(avi)], J_ingest.IngestConfig(**kw)))
+        assert len(alone) == len(port)
+        for w, (a, p) in enumerate(zip(alone, port)):
+            assert a.keys() == p.keys(), (b, w, sorted(a), sorted(p))
+            for k in a:
+                if k == "start_frame":
+                    assert a[k] == p[k], (b, w, a[k], p[k])
+                    continue
+                np.testing.assert_array_equal(
+                    bits(p[k])[b:b + 1], bits(a[k]),
+                    err_msg=f"stream {b} window {w} {k}")
+    assert not pp.quarantined
+    return pp
 
 
 @pytest.mark.parametrize("native", [True, False])
@@ -252,18 +286,57 @@ def test_msv1_16_ingest(native, kw, monkeypatch):
     dict(window=3, streaming=True),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_msv1_8_palette_ingest_with_audio(kw):
-    """8-bit palettized MSV1 with MP3 tracks: windows equal, and the audio
-    tracks the reference's."""
+    """8-bit palettized MSV1 with MP3 tracks, two palettes: each stream's
+    windows those of the reference decoding it alone, and the audio tracks
+    the reference batch's."""
     avis = [msv1_8_avi(s, audio=True) for s in (1, 2)]
-    jp, pp = pipelines(avis, **kw)
-    assert_windows_equal(list(jp), list(pp))
+    pp = compare_alone(avis, **kw)
+    jp, _ = pipelines(avis, **kw)
+    list(jp)  # streaming: the tracks fill as the windows demux
     assert plain(pp.audio_tracks) == plain(jp.audio_tracks)
     assert all(t is not None and t.sections for t in pp.audio_tracks)
 
 
 def test_msv1_8_palette_ingest():
-    pp = compare(MSV8, window=4, model_downscale=2)
+    pp = compare_alone(MSV8, window=4, model_downscale=2)
     assert pp.info.bpp == 8
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("kw", [
+    dict(window=4, model_downscale=2),
+    dict(window=3, streaming=True),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_msv1_8_each_stream_in_its_own_palette(native, kw, monkeypatch):
+    """Reference host fault 4, repaired: a batch of two palettes decodes
+    each stream as the reference decodes it alone, on both host parsers
+    and streaming; the reference's batch paints stream 1 in stream 0's
+    palette, so the port's batch differs from it there and only there."""
+    if not native:
+        from test_torch_ingest import no_native
+
+        no_native(monkeypatch)
+    pp = compare_alone(MSV8, **kw)
+    assert [len(p) for p in pp._pals] == [256, 256]
+    assert not np.array_equal(*pp._pals)
+    jp, pp = pipelines(MSV8, **kw)
+    ref, port = list(jp), list(pp)
+    f0 = [np.asarray(w["frames_u32"]) for w in ref]
+    f1 = [w["frames_u32"].numpy().view(np.uint32) for w in port]
+    assert all(np.array_equal(a[0], b[0]) for a, b in zip(f0, f1))
+    assert not all(np.array_equal(a[1], b[1]) for a, b in zip(f0, f1))
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_msv1_8_one_palette_equals_reference_batch(native, monkeypatch):
+    """One palette shared by the batch: the port's batch equals the
+    reference's batch exactly."""
+    if not native:
+        from test_torch_ingest import no_native
+
+        no_native(monkeypatch)
+    pp = compare(MSV8_SHARED, window=4, model_downscale=2)
+    assert np.array_equal(*pp._pals)
 
 
 def test_msv1_bpp16_is_not_rescaled():
